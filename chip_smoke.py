@@ -1,31 +1,50 @@
 #!/usr/bin/env python3
-"""Smoke run of the torch port's protein /query path on one NVIDIA card.
+"""Smoke run of the torch port's /query and family paths on one NVIDIA card.
 
     python3 chip_smoke.py
 
-Builds the CUDA kernels from ``close_kmers_tpu_torch/csrc`` and drives the
-port's main path on the card, phase by phase; any failure exits non-zero
-and prints no result.  It needs one card, and exits 1 without one.
+Builds the CUDA kernels from ``close_kmers_tpu_torch/csrc`` (one nvcc per
+source, in parallel) and drives the port's main paths on the card, phase
+by phase; any failure exits non-zero and prints no result.  It needs one
+card, and exits 1 without one.
 
 1. Device and build: the card's name and power limit (nvidia-smi), then
    ``nvcc`` builds the kernels for sm_90a (build seconds printed).
-2. Kernels against their plain torch versions at main-path shapes (one
-   4096 x 300-aa batch against the real-size DB of phase 4), exact
-   equality, times from CUDA events.
+2. Kernels against their plain torch versions at main-path shapes, exact
+   equality, times from CUDA events: probe_select and scan_score on one
+   4096 x 300-aa batch against the real-size DB of phase 4, and
+   row_gather, famwide_select and family_group on the same batch against
+   the family universe of phase 4 (D = 3).
 3. The golden server on the card: the port's kser context on
    tests/golden/data with device="cuda", and the version / query /
-   query_details / query_best conversations over a socket, byte for byte
-   against tests/golden/*.resp.
+   query_details / query_best / lookup / lookup_best / wadd / yfq /
+   zfq_gz conversations over a socket, byte for byte against
+   tests/golden/*.resp; then a second context forced onto the device
+   family program (device_family_min = 0), whose four /lookup modes and
+   /fq_lookup must give the first context's bytes.
 4. Real size: bench.py's query corpus rebuilt from its seed (70,000
    source proteins x 300 aa, 4,096 functions: ~20.5M signature kmers;
-   65,536 query proteins).  All queries go through
-   DeviceScorer.score_batch_packed (slim pack) + native.best_call_batch in
-   batches of 4096, and 4096 through KmerEngine.annotate_with_hits (the
-   server's engine call); a 4096-query sample is held against
-   native.HashPipeline call counts and against native.score_batch fed by
-   a numpy searchsorted over the DB keys.
-5. Both kernels' launch counters, reset just before phases 3-4, must be
-   above 0.
+   65,536 query proteins).
+   * /query: all queries through DeviceScorer.score_batch_packed (slim
+     pack) + native.best_call_batch in batches of 4096, and 4096 through
+     KmerEngine.annotate_with_hits (the server's engine call); a
+     4096-query sample is held against native.HashPipeline call counts
+     and against native.score_batch fed by a numpy searchsorted over the
+     DB keys.
+   * family: bench.py's family universe (make_family_universe: kmer
+     degree 1-3, 12,288 families) rebuilt from the same seed; all 65,536
+     proteins through KmerEngine.best_family_matches_padded (the auto
+     gate takes the famwide path), the same chunks through a two-gather
+     DeviceFamilyScorer(famwide=False) with equal packs, and a
+     4096-protein sample equal to the host path (native.family_scores
+     and the scalar find_best_family_match).
+   * reads: 20,000 synthetic 150-bp reads (scripts/fq_bench.py's
+     synth_reads, seed 3 as bench.py) through the /fq_lookup path
+     (server.http.process_reads: batch_orf_arrays,
+     best_family_matches_padded(as_arrays=True), best-frame reduction);
+     a 1,000-read sample equal to the host path's output.
+5. All five kernels' launch counters, reset just before phases 3-4, must
+   be above 0.
 
 The last lines are the kernels' JSON record, the nvidia-smi line and
 ``{"ok": true, "device": {...}}``.
@@ -53,6 +72,10 @@ N_QUERY = 65_536
 BATCH = 4096
 N_FUNCS = 4096
 SAMPLE = 4096
+# bench.py bench_fastq
+N_READS = 20_000
+READ_LEN = 150
+READ_SAMPLE = 1000
 
 
 class SmokeFailure(RuntimeError):
@@ -70,9 +93,9 @@ def log(*a) -> None:
 
 def build_corpus(host):
     """bench.py build_corpus, rebuilt from its seeds (no cache)."""
-    rng = np.random.default_rng(0)
-    off = rng.integers(0, 20, size=(N_SRC, PROT_LEN), dtype=np.int64
-                       ).astype(np.uint8)
+    src_rng = np.random.default_rng(0)
+    off = src_rng.integers(0, 20, size=(N_SRC, PROT_LEN), dtype=np.int64
+                           ).astype(np.uint8)
     W = PROT_LEN - 8 + 1
     o32 = off.astype(np.int32)
     hi = np.zeros((N_SRC, W), dtype=np.int32)
@@ -97,7 +120,57 @@ def build_corpus(host):
     offsets = np.full((N_QUERY, width), 20, dtype=np.uint8)
     offsets[:, :PROT_LEN] = off[qi]
     lengths = np.full(N_QUERY, PROT_LEN, dtype=np.int32)
-    return db, offsets, lengths
+    # bench.py hands its seed-0 stream, as the corpus build left it, to
+    # make_family_universe
+    return db, offsets, lengths, src_rng
+
+
+def make_family_universe(host, db, rng):
+    """bench.py make_family_universe: named-function DB + synthetic
+    family universe (deg 1-3 kmer->fam CSR, 3 families per function)."""
+    n_funcs = int(db.fi.max()) + 1
+    dbf = host.SignatureDB(db.keys, db.fi, db.oi, db.avg_off, db.wt,
+                           functions=[f"fn{i}" for i in range(n_funcs)])
+    n = len(dbf)
+    deg = rng.integers(1, 4, size=n)
+    offs = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(deg, out=offs[1:])
+    vals = np.repeat(dbf.fi * 3, deg) \
+        + (np.arange(offs[-1]) % 3).astype(np.int32)
+    mapping = host.family_db.KmerFamilyMapping()
+    mapping._fam_csr = (dbf.keys, offs, vals.astype(np.int32))
+    mapping.families = [
+        host.family_db.FamilyData(f"PGF_{f:08d}", f"PLF_{f % 5}_{f:08d}",
+                                  f % 5, f"fn{f // 3}", f, 10, 10)
+        for f in range(3 * n_funcs)]
+    return dbf, mapping
+
+
+# scripts/dna_bench.py CODON: one codon per amino acid, index = aa offset
+CODON = ["GCG", "TGC", "GAT", "GAA", "TTT", "GGT", "CAT", "ATT", "AAA",
+         "CTG", "ATG", "AAC", "CCG", "CAG", "CGT", "AGC", "ACC", "GTT",
+         "TGG", "TAT"]
+
+
+def synth_reads(rng, src_off: np.ndarray, n_reads: int, read_len: int):
+    """scripts/fq_bench.py synth_reads: ~70% coding reads (a random
+    window of a reverse-translated source protein, random strand/offset),
+    ~30% random DNA."""
+    bases = np.array(list("ACGT"))
+    comp = str.maketrans("ACGT", "TGCA")
+    reads = []
+    for i in range(n_reads):
+        if rng.random() < 0.7:
+            prot = src_off[rng.integers(0, len(src_off))]
+            dna = "".join(CODON[o] for o in prot)
+            start = int(rng.integers(0, max(1, len(dna) - read_len)))
+            r = dna[start:start + read_len]
+            if rng.random() < 0.5:
+                r = r.translate(comp)[::-1]
+        else:
+            r = "".join(rng.choice(bases, size=read_len))
+        reads.append((f"read{i}", r))
+    return reads
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -184,6 +257,92 @@ def phase_kernels(T, ddb, off_d, len_d, params):
     }
 
 
+def phase_family_kernels(T, TF, dfs, off_d, len_d):
+    """Phase 2, family half: row_gather, famwide_select and family_group
+    against their plain versions at the family path's shapes (the batch's
+    windows on the famwide rows, its matched-row ids on the family table,
+    its sorted family planes)."""
+    import torch
+    from close_kmers_tpu_torch.ops.family_group import (family_group,
+                                                        family_group_plain)
+    from close_kmers_tpu_torch.ops.probe_select import (famwide_select,
+                                                        famwide_select_plain)
+    from close_kmers_tpu_torch.ops.row_gather import (row_gather,
+                                                      row_gather_plain)
+    from close_kmers_tpu_torch.ops.row_gather import \
+        _launch as row_gather_launch
+    out = {}
+    hi, lo, valid = T.encode_windows(off_d, len_d)
+    B, W = hi.shape
+    flat = (hi.reshape(-1), lo.reshape(-1), valid.reshape(-1))
+
+    fargs = (*flat, dfs.famwide, dfs.fam_w, dfs.fam_d, T.FUSED_LO_BITS)
+    got = famwide_select(*fargs)
+    torch.cuda.synchronize()
+    err = max_abs_err(famwide_select_plain(*fargs), got)
+    check(int(got[0].sum()) > 0, "famwide probe found no hits")
+    check(int((got[3] >= 0).sum()) > 0, "famwide probe found no families")
+    ms = cuda_ms(lambda: famwide_select(*fargs), 20)
+    plain_ms = cuda_ms(lambda: famwide_select_plain(*fargs), 5)
+    log(f"famwide_select: N={flat[0].numel()} windows, rows "
+        f"{tuple(dfs.famwide.shape)}, fam_w={dfs.fam_w}, D={dfs.fam_d}: "
+        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, max_abs_err {err}")
+    out["famwide_select"] = dict(
+        name="famwide_select", route="cuda",
+        source="close_kmers_tpu_torch/csrc/probe_select.cu",
+        replaces="close_kmers_tpu/core/device_family.py:373",
+        max_abs_err=err, ms=ms, plain_ms=plain_ms)
+
+    idx = T.probe_windows(dfs.ddb, hi, lo, valid)[5].reshape(-1)
+    gargs = (dfs.fdb.fam, idx)
+    got = row_gather(*gargs)
+    torch.cuda.synchronize()
+    err = max_abs_err([row_gather_plain(*gargs)], [got])
+    ms = cuda_ms(lambda: row_gather(*gargs), 20)
+    launch_ms = cuda_ms(lambda: row_gather_launch(*gargs), 20)
+    plain_ms = cuda_ms(lambda: row_gather_plain(*gargs), 20)
+    log(f"row_gather: {idx.numel()} ids x {dfs.fdb.d} ints from "
+        f"{tuple(dfs.fdb.fam.shape)}: kernel {ms:.4f} ms with its id-range "
+        f"check ({launch_ms:.4f} ms launch alone), plain {plain_ms:.4f} ms,"
+        f" max_abs_err {err}")
+    out["row_gather"] = dict(
+        name="row_gather", route="cuda",
+        source="close_kmers_tpu_torch/csrc/row_gather.cu",
+        replaces="close_kmers_tpu/ops/pallas_gather.py:65",
+        max_abs_err=err, ms=ms, plain_ms=plain_ms)
+
+    skey, swt, spos = TF.sort_fams(got.reshape(B, W, -1))
+    cap = skey.shape[1] + 1        # the global pack's per-row width
+    got = family_group(skey, swt, spos, cap)
+    torch.cuda.synchronize()
+    want = family_group_plain(skey, swt, spos, cap)
+    torch.cuda.synchronize()
+    err = max_abs_err(want, got)
+    check(int(got[0].sum()) > 0, "family_group found no groups")
+    ms = cuda_ms(lambda: family_group(skey, swt, spos, cap), 20)
+    plain_ms = cuda_ms(lambda: family_group_plain(skey, swt, spos, cap), 2)
+    log(f"family_group: B={B} rows x M={skey.shape[1]} sorted columns, cap "
+        f"{cap}, {int(got[0].sum())} groups: kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, max_abs_err {err}")
+    out["family_group"] = dict(
+        name="family_group", route="cuda",
+        source="close_kmers_tpu_torch/csrc/family_group.cu",
+        replaces="close_kmers_tpu/core/device_family.py:233",
+        max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    return out
+
+
+def _reads_body(name: str) -> bytes:
+    with open(os.path.join(GOLDEN, name), "rb") as f:
+        return f.read()
+
+
+def _post(path: bytes, body: bytes) -> bytes:
+    return (b"POST " + path + b" HTTP/1.1\nContent-length: %d\n\n"
+            % len(body) + body)
+
+
+# tests/test_golden.py CONVS, less xmatrix (/matrix is not ported)
 GOLDEN_CONVS = {
     "version": lambda body: b"GET /version HTTP/1.1\n\n",
     "query": lambda body:
@@ -194,7 +353,18 @@ GOLDEN_CONVS = {
     "query_best": lambda body:
         b"POST /query?find_best_call=1 HTTP/1.1\nContent-length: %d\n\n"
         % len(body) + body,
+    "lookup": lambda body: _post(b"/lookup", body),
+    "lookup_best": lambda body: _post(
+        b"/lookup?find_best_match=1&target_genus=Escherichia", body),
+    "wadd": lambda body: _post(b"/mapping/gold_add/add", body),
+    "yfq": lambda body: _post(b"/fq_lookup", _reads_body("reads.fq")),
+    "zfq_gz": lambda body: _post(b"/fq_lookup", _reads_body("reads.fq.gz")),
 }
+
+# tests/test_server.py test_device_family_server_byte_identical's modes
+FAMILY_MODES = [b"/lookup?find_best_match=1&target_genus=Escherichia",
+                b"/lookup?find_best_match=1&allow_ambiguous_functions=1",
+                b"/lookup", b"/lookup?find_reps=1"]
 
 
 def _http(port: int, req: bytes) -> bytes:
@@ -208,45 +378,78 @@ def _http(port: int, req: bytes) -> bytes:
             out += c
 
 
+class _Server:
+    """A kser context served on a thread of this process."""
+
+    def __init__(self, ctx):
+        from close_kmers_tpu_torch.server.http import handle_connection
+        self.ctx = ctx
+        self.loop = asyncio.new_event_loop()
+        holder = {}
+        ready = threading.Event()
+
+        async def run():
+            srv = await asyncio.start_server(
+                lambda r, w: handle_connection(r, w, ctx), "127.0.0.1", 0)
+            holder["port"] = srv.sockets[0].getsockname()[1]
+            ready.set()
+            async with srv:
+                await ctx.stop_event.wait()
+
+        self.thread = threading.Thread(
+            target=lambda: self.loop.run_until_complete(run()))
+        self.thread.start()
+        check(ready.wait(120), "golden server did not start")
+        self.port = holder["port"]
+
+    def close(self):
+        self.loop.call_soon_threadsafe(self.ctx.stop_event.set)
+        self.thread.join(60)
+        self.ctx._compute.shutdown()
+        self.loop.close()
+        check(not self.thread.is_alive(), "golden server thread did not stop")
+
+
 def phase_golden(device) -> None:
     """Phase 3: the golden conversations through the port's server with
-    its engine on the card."""
+    its engine on the card, then the device family program against the
+    host family path on every /lookup mode and /fq_lookup."""
     from close_kmers_tpu_torch.cli.kser import load_server_context
-    from close_kmers_tpu_torch.server.http import handle_connection
 
-    ctx = load_server_context(os.path.join(GOLDEN, "data"), batch_size=64,
-                              device=device)
-    loop = asyncio.new_event_loop()
-    holder = {}
-    ready = threading.Event()
-
-    async def run():
-        srv = await asyncio.start_server(
-            lambda r, w: handle_connection(r, w, ctx), "127.0.0.1", 0)
-        holder["port"] = srv.sockets[0].getsockname()[1]
-        ready.set()
-        async with srv:
-            await ctx.stop_event.wait()
-
-    t = threading.Thread(target=lambda: loop.run_until_complete(run()))
-    t.start()
+    data = os.path.join(GOLDEN, "data")
+    with open(os.path.join(GOLDEN, "queries.fa"), "rb") as f:
+        body = f.read()
+    servers = []
     try:
-        check(ready.wait(120), "golden server did not start")
-        with open(os.path.join(GOLDEN, "queries.fa"), "rb") as f:
-            body = f.read()
+        host = _Server(load_server_context(data, batch_size=64,
+                                           device=device))
+        servers.append(host)
         for name, make in GOLDEN_CONVS.items():
             with open(os.path.join(GOLDEN, f"{name}.resp"), "rb") as f:
                 want = f.read()
-            got = _http(holder["port"], make(body))
+            got = _http(host.port, make(body))
             check(got == want, f"golden conversation {name} differs:\n"
                   f"{got[:400]!r}")
             log(f"golden {name}: {len(got)} bytes identical")
+        dev_ctx = load_server_context(data, batch_size=64, device=device)
+        dev_ctx.engine.device_family_min = 0
+        dev = _Server(dev_ctx)
+        servers.append(dev)
+        reqs = [_post(m, body) for m in FAMILY_MODES]
+        reqs.append(_post(b"/fq_lookup", _reads_body("reads.fq")))
+        for req in reqs:
+            want = _http(host.port, req)
+            got = _http(dev.port, req)
+            check(got == want and b"PGF_" in got,
+                  f"device family program differs on {req[:60]!r}")
+        root = dev_ctx.mapping_map[""]
+        check(dev_ctx.engine._family_scorers[root][1] is not None,
+              "the forced context did not build a device family scorer")
+        log(f"golden: device family program byte-identical to the host "
+            f"family path on {len(reqs)} requests")
     finally:
-        loop.call_soon_threadsafe(ctx.stop_event.set)
-        t.join(60)
-        ctx._compute.shutdown()
-        loop.close()
-    check(not t.is_alive(), "golden server thread did not stop")
+        for srv in servers:
+            srv.close()
 
 
 def reference_calls(host, T, db, offsets, lengths, params):
@@ -271,6 +474,127 @@ def reference_calls(host, T, db, offsets, lengths, params):
                                    params, max_calls_per_seq=64)
 
 
+def phase_family(TF, eng, mapping, offsets, lengths, params, device):
+    """Phase 4, family: all queries through best_family_matches_padded
+    (famwide, by the auto gate), the same chunks through a two-gather
+    scorer with equal packs, and a sample against the host path."""
+    import torch
+    from close_kmers_tpu_torch.core.device_score import DeviceScorer
+    dfs = eng._device_family_scorer(mapping)
+    check(dfs is not None and dfs.famwide is not None,
+          "the auto gate did not take the famwide path")
+    eng.best_family_matches_padded(offsets[:BATCH], lengths[:BATCH],
+                                   mapping)                  # warm-up
+    passes = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        ms = eng.best_family_matches_padded(offsets, lengths, mapping)
+        passes.append(time.time() - t0)
+    dt = sorted(passes)[1]
+    placed = sum(1 for m in ms if m.gfam_id)
+    check(len(ms) == N_QUERY and placed > N_QUERY // 2,
+          f"only {placed} of {len(ms)} proteins placed in a family")
+    log(f"phase 4: family best-match (famwide): {N_QUERY} proteins, "
+        f"{placed} placed; passes {passes} s; median {dt:.4f} s = "
+        f"{N_QUERY / dt:.0f} proteins/s")
+
+    tg = TF.DeviceFamilyScorer(eng.db, mapping, device, ddb=eng.fa.ddb,
+                               famwide=False)
+    ccap, gps = dfs.bm_calls_per_seq, dfs.bm_groups_per_seq
+    fold_calls, fold_rows = dfs.pack_flags(offsets.shape[1])
+    unpack = (DeviceScorer.unpack_dense2 if fold_calls
+              else DeviceScorer.unpack_dense3)
+    spent = {"famwide": 0.0, "two-gather": 0.0}
+    for _ in range(2):                   # the first round warms both
+        spent = dict.fromkeys(spent, 0.0)
+        for a in range(0, N_QUERY, BATCH):
+            c_off, c_len = offsets[a:a + BATCH], lengths[a:a + BATCH]
+            packs = {}
+            for name, sc in (("famwide", dfs), ("two-gather", tg)):
+                torch.cuda.synchronize()
+                t0 = time.time()
+                calls, call_cap, rows, _ = sc.score_family_packed(
+                    c_off, c_len, params, ccap, -gps * BATCH,
+                    slim_calls=True)
+                torch.cuda.synchronize()
+                spent[name] += time.time() - t0
+                packs[name] = (calls.cpu(), rows.cpu())
+            (fc, fr), (gc, gr) = packs["famwide"], packs["two-gather"]
+            check(torch.equal(fc, gc) and torch.equal(fr, gr),
+                  f"famwide and two-gather packs differ at chunk {a}")
+            check(unpack(fc.numpy(), BATCH, call_cap) is not None
+                  and TF.DeviceFamilyScorer.finish_rollup_global(
+                      fr.numpy(), BATCH, gps * BATCH, folded=fold_rows)
+                  is not None, f"packs overflowed at chunk {a}")
+    log(f"phase 4: famwide and two-gather packs equal on all "
+        f"{N_QUERY // BATCH} chunks; fused program (upload to packs, "
+        f"synced) per {N_QUERY}: famwide {spent['famwide']:.4f} s, "
+        f"two-gather {spent['two-gather']:.4f} s")
+
+    eng.device_family = False
+    try:
+        t0 = time.time()
+        want = eng.best_family_matches_padded(offsets[:SAMPLE],
+                                              lengths[:SAMPLE], mapping)
+    finally:
+        eng.device_family = True
+    check(want == ms[:SAMPLE],
+          "family best matches differ from the host path on the sample")
+    log(f"phase 4: {SAMPLE}-protein family sample equals the host path "
+        f"(native.family_scores + find_best_family_match, "
+        f"{time.time() - t0:.1f} s)")
+    return N_QUERY / dt, spent
+
+
+def phase_reads(host, eng, mapping, offsets, params):
+    """Phase 4, reads: the /fq_lookup compute path on synthetic reads,
+    and a sample against the host family path."""
+    import torch
+    from close_kmers_tpu_torch.server.http import (Request, ServerContext,
+                                                   process_reads)
+    t0 = time.time()
+    reads = synth_reads(np.random.default_rng(3), offsets[:2048, :PROT_LEN],
+                        N_READS, READ_LEN)
+    n_orfs = host.translate.batch_orf_arrays(
+        [seq for _, seq in reads])[0].shape[0]
+    log(f"set-up: {N_READS} reads x {READ_LEN} bp, {n_orfs} ORFs, in "
+        f"{time.time() - t0:.1f} s")
+    ctx = ServerContext(eng, family_mode=True)
+    ctx.mapping_map[""] = mapping
+    req = Request()
+    try:
+        def run(rs):
+            return asyncio.run(process_reads(ctx, rs, params, req))
+
+        run(reads[:2000])                                     # warm-up
+        passes = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            text = run(reads)
+            passes.append(time.time() - t0)
+        dt = sorted(passes)[1]
+        called = text.count("\n")
+        check(called > N_READS // 4, f"only {called} reads called")
+        log(f"phase 4: /fq_lookup path: {N_READS} reads, {called} called; "
+            f"passes {passes} s; median {dt:.4f} s = {N_READS / dt:.0f} "
+            f"reads/s = {n_orfs / dt:.0f} ORF proteins/s")
+        dev_text = run(reads[:READ_SAMPLE])
+        eng.device_family = False
+        try:
+            host_text = run(reads[:READ_SAMPLE])
+        finally:
+            eng.device_family = True
+        check(dev_text and dev_text == host_text,
+              "/fq_lookup output differs from the host family path")
+        log(f"phase 4: {READ_SAMPLE}-read /fq_lookup sample equals the host "
+            f"family path ({dev_text.count(chr(10))} lines)")
+    finally:
+        ctx._compute.shutdown()
+    return N_READS / dt, n_orfs / dt
+
+
 def main() -> int:
     try:
         import torch
@@ -284,11 +608,15 @@ def main() -> int:
     sys.path.insert(0, REPO)
     try:
         from close_kmers_tpu_torch import host
+        from close_kmers_tpu_torch.core import device_family as TF
         from close_kmers_tpu_torch.core import engine as T
         from close_kmers_tpu_torch.core.api import KmerEngine
         from close_kmers_tpu_torch.core.device_score import DeviceScorer
         from close_kmers_tpu_torch.ops import _build
-        from close_kmers_tpu_torch.ops.probe_select import probe_select
+        from close_kmers_tpu_torch.ops.family_group import family_group
+        from close_kmers_tpu_torch.ops.probe_select import (famwide_select,
+                                                            probe_select)
+        from close_kmers_tpu_torch.ops.row_gather import row_gather
         from close_kmers_tpu_torch.ops.scan_score import scan_score
         from close_kmers_tpu_torch.utils.device import (
             gpu_name_and_power_limit, resolve_device)
@@ -301,6 +629,9 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     card = gpu_name_and_power_limit()
     t_start = time.time()
+    wrappers = {"probe_select": probe_select, "scan_score": scan_score,
+                "row_gather": row_gather, "famwide_select": famwide_select,
+                "family_group": family_group}
 
     # -- phase 1: device and build
     log(f"card: {card} (torch {torch.__version__}, CUDA {torch.version.cuda},"
@@ -309,28 +640,39 @@ def main() -> int:
     _build.build(force=True, verbose=True)
     log(f"phase 1: nvcc built {_build.LIB} in {time.time() - t0:.1f} s")
 
-    # -- set-up: the real-size DB and queries (host)
+    # -- set-up: the real-size DB, family universe and queries (host)
     t0 = time.time()
-    db, offsets, lengths = build_corpus(host)
+    db, offsets, lengths, src_rng = build_corpus(host)
+    dbf, mapping = make_family_universe(host, db, src_rng)
     log(f"set-up: corpus + DB of {len(db):,} kmers (max bucket "
-        f"{db.max_bucket}) built on the host in {time.time() - t0:.1f} s")
+        f"{db.max_bucket}) and {len(mapping.families):,} families built "
+        f"on the host in {time.time() - t0:.1f} s")
     params = host.EngineParams()
     t0 = time.time()
     ds = DeviceScorer(db, device)
-    eng = KmerEngine(db, device)
+    eng = KmerEngine(dbf, device)
     torch.cuda.synchronize()
     log(f"set-up: two payload-wide tables {tuple(ds.ddb.payload_wide.shape)} "
         f"built and uploaded in {time.time() - t0:.1f} s")
+    t0 = time.time()
+    dfs = eng._device_family_scorer(mapping)
+    torch.cuda.synchronize()
+    check(dfs is not None and dfs.famwide is not None,
+          "no famwide family scorer for the full-width corpus")
+    log(f"set-up: family table {tuple(dfs.fdb.fam.shape)} and famwide rows "
+        f"{tuple(dfs.famwide.shape)} (W={dfs.fam_w}, D={dfs.fam_d}) built "
+        f"and uploaded in {time.time() - t0:.1f} s")
 
     # -- phase 2: kernels against their plain versions
     off_d = torch.from_numpy(offsets[:BATCH]).to(device)
     len_d = torch.from_numpy(lengths[:BATCH]).to(device)
     kernels = phase_kernels(T, ds.ddb, off_d, len_d, params)
-    log("phase 2: both kernels equal their plain versions")
+    kernels.update(phase_family_kernels(T, TF, dfs, off_d, len_d))
+    log("phase 2: all five kernels equal their plain versions")
 
     # -- the main path, counted (and its peak device memory)
-    probe_select.launches = 0
-    scan_score.launches = 0
+    for fn in wrappers.values():
+        fn.launches = 0
     torch.cuda.reset_peak_memory_stats()
 
     # -- phase 3: golden server on the card
@@ -391,8 +733,6 @@ def main() -> int:
     rate_eng = SAMPLE / dt_eng
     log(f"phase 4: KmerEngine.annotate_with_hits: {SAMPLE} proteins in "
         f"{dt_eng:.3f} s = {rate_eng:.0f} proteins/s")
-    peak = torch.cuda.max_memory_allocated()
-    log(f"phase 4: peak device memory {peak} B ({peak / 2**30:.2f} GiB)")
 
     # correctness on the sample: independent CPU references
     s_off, s_len = offsets[:SAMPLE], lengths[:SAMPLE]
@@ -429,17 +769,24 @@ def main() -> int:
     log(f"phase 4: {SAMPLE}-protein sample matches the native CPU references "
         f"({int(n_ref.sum())} calls)")
 
-    # -- phase 5: the main path went through both kernels
-    launches = {"probe_select": probe_select.launches,
-                "scan_score": scan_score.launches}
+    rate_fam, _spent = phase_family(TF, eng, mapping, offsets, lengths,
+                                    params, device)
+    rate_reads, rate_orfs = phase_reads(host, eng, mapping, offsets, params)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"phase 4: peak device memory {peak} B ({peak / 2**30:.2f} GiB)")
+
+    # -- phase 5: the main path went through every kernel
+    launches = {name: fn.launches for name, fn in wrappers.items()}
     log(f"phase 5: launches on the main path: {launches}")
     for name, n in launches.items():
         check(n > 0, f"{name} was never launched on the main path")
     log(f"all phases passed in {time.time() - t_start:.1f} s; "
         f"DeviceScorer {rate_ds:.0f} proteins/s, KmerEngine {rate_eng:.0f} "
-        f"proteins/s, peak {peak} B on {card}")
+        f"proteins/s, family best-match {rate_fam:.0f} proteins/s, "
+        f"/fq_lookup {rate_reads:.0f} reads/s ({rate_orfs:.0f} ORF "
+        f"proteins/s), peak {peak} B on {card}")
 
-    records = [dict(kernels[k], launches=launches[k]) for k in kernels]
+    records = [dict(kernels[k], launches=launches[k]) for k in wrappers]
     print(json.dumps({"kernels": records}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -40,9 +40,11 @@ def discover_data_dir(data_dir: str) -> dict:
 
 
 def warmup_context(ctx) -> None:
-    """Run the /query path once (with and without details) before the
+    """Run the /query path once (with and without details), and in family
+    mode the family best-match path against the root mapping, before the
     listener opens, so the first client request does not pay the kernel
-    build and the first launches."""
+    build, the family table upload and the first launches.  A failure
+    here raises: a server whose family path cannot run does not open."""
     import numpy as np
     t0 = time.time()
     rng = np.random.default_rng(0)
@@ -51,6 +53,8 @@ def warmup_context(ctx) -> None:
     items = [("w", prot)]
     ctx.engine.annotate(items, want_otu=True, want_code=False)
     ctx.engine.annotate(items, want_hits=True, want_otu=True)
+    if ctx.family_mode:
+        ctx.engine.best_family_matches(items, ctx.mapping_map[""])
     print(f"serving path warmed in {time.time()-t0:.1f}s", file=sys.stderr)
 
 

@@ -3,16 +3,34 @@ protein annotation with oracle-exact outputs, backed by the device probe
 + native C++ scoring.  This is the layer request handlers talk to.
 
 Ported: ``AnnotationResult``, ``KmerEngine.annotate`` and
-``annotate_with_hits``.  The family methods and ``mesh=`` raise
-``NotImplementedError`` until ``core/device_family`` and ``parallel/``
-are ported.
+``annotate_with_hits`` (the /query path), and the family path:
+``annotate_family``, ``best_family_matches``,
+``best_family_matches_padded`` and ``family_scores_batch`` (whose hit
+arrays are now a required argument: the port keeps no ``_last_hits``).
+``mesh=`` raises ``NotImplementedError`` until ``parallel/`` is ported.
+
+Two deliberate differences from the reference: the engine caches its
+family scorer per mapping in a weak-keyed table of its own, never as
+``mapping._device_scorer`` (which the JAX engine writes), so engines of
+both packages may share a mapping; and ``best_family_matches_padded``
+keeps at most ``FAMILY_MATCH_GROUP`` chunks in flight, where the
+reference dispatches every chunk of a request up front (ADVICE.md,
+medium: unbounded dispatch-ahead).
 """
 
 from __future__ import annotations
 
-import numpy as np
+import collections
+import os
+import weakref
 
-from ..host import EngineParams, SignatureDB, native, oracle as O
+import numpy as np
+import torch
+
+from ..host import EngineParams, SignatureDB, family as F, native, \
+    oracle as O
+from .device_family import DeviceFamilyScorer
+from .device_score import DeviceScorer
 from .engine import FastAnnotator, finish_best_call
 
 
@@ -28,15 +46,61 @@ class AnnotationResult:
         self.best = best
 
 
+class BestCallReduction(F.BestCallReduction):
+    """``family.BestCallReduction`` whose scalar ``best_call`` runs the
+    port's ``finish_best_call``: the host class imports it from
+    ``close_kmers_tpu.core.engine``, which imports jax."""
+
+    # Copied from close_kmers_tpu/core/family.py::BestCallReduction.
+    def best_call(self, s: int) -> O.BestCall:
+        return finish_best_call(
+            int(self.nf[s]), self.ofi[s], self.ocnt[s], self.owt[s],
+            lambda i: (self.functions[i]
+                       if 0 <= i < len(self.functions)
+                       else "INVALID_OFFSET"))
+
+
+class _Readback:
+    """A device buffer's copy to the host, started when made (into pinned
+    memory, asynchronously, on a card) and waited for by :meth:`result`."""
+
+    def __init__(self, t: torch.Tensor):
+        self._event = None
+        if t.device.type == "cuda":
+            host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            host.copy_(t, non_blocking=True)
+            self._event = torch.cuda.Event()
+            self._event.record()
+            t = host
+        self._host = t
+
+    def result(self) -> np.ndarray:
+        if self._event is not None:
+            self._event.synchronize()
+        return self._host.numpy()
+
+
 class KmerEngine:
     """Batch annotation engine with reference-exact semantics."""
 
-    def __init__(self, db: SignatureDB, device, mesh=None):
+    def __init__(self, db: SignatureDB, device, mesh=None,
+                 device_family: bool = True,
+                 device_family_min: int | None = None):
+        """``device_family``: allow the fused device calls + family
+        rollup path for family-mode lookups; ``device_family_min``:
+        minimum mapping size (distinct kmers) to justify the family table
+        upload (default env CLOSE_KMERS_DEVICE_FAMILY_MIN or 50000)."""
         if mesh is not None:
             raise NotImplementedError("sharded (mesh) serving is not ported")
         self.db = db
         self.fa = FastAnnotator(db, device)
         self.function_of = db.function_of
+        self.device_family = device_family
+        self.device_family_min = device_family_min \
+            if device_family_min is not None else int(os.environ.get(
+                "CLOSE_KMERS_DEVICE_FAMILY_MIN", 50_000))
+        # mapping -> (the fam CSR it was built from, scorer or None)
+        self._family_scorers = weakref.WeakKeyDictionary()
 
     def annotate(self, items: list[tuple[str, str]],
                  params: EngineParams | None = None,
@@ -110,16 +174,255 @@ class KmerEngine:
                                             best))
         return results, h
 
-    # -- not ported yet ------------------------------------------------------
+    # -- family-mode lookup (calls + family scores in one device pass) ------
 
-    def annotate_family(self, *args, **kw):
-        raise NotImplementedError("family-mode annotation is not ported")
+    DEVICE_FAMILY_MAX_D = 32   # dense fam-table fan-out bound (memory)
 
-    def best_family_matches(self, *args, **kw):
-        raise NotImplementedError("family best-match is not ported")
+    def _device_family_scorer(self, mapping):
+        """DeviceFamilyScorer for ``mapping``, cached per engine and
+        rebuilt when the mapping's CSR is (every add_fam_mapping clears
+        it).  None when the device path does not apply: disabled,
+        mapping too small to justify the family table upload, or
+        per-kmer family fan-out too large to densify."""
+        if not self.device_family:
+            return None
+        csr = mapping.fam_csr()
+        if len(csr[0]) < self.device_family_min:
+            return None
+        cached = self._family_scorers.get(mapping)
+        if cached is not None and cached[0] is csr:
+            return cached[1]
+        # famwide=None: the JAX auto gate for the folded single-read rows
+        dfs = DeviceFamilyScorer(self.db, mapping, self.fa.device,
+                                 ddb=self.fa.ddb, famwide=None)
+        if dfs.fdb.d > self.DEVICE_FAMILY_MAX_D:
+            dfs = None
+        self._family_scorers[mapping] = (csr, dfs)
+        return dfs
 
-    def best_family_matches_padded(self, *args, **kw):
-        raise NotImplementedError("family best-match is not ported")
+    def annotate_family(self, items, mapping,
+                        params: EngineParams | None = None,
+                        want_best: bool = False):
+        """Family-mode batch: (results, seq_scores) where seq_scores[s]
+        is {family_id: SeqScore} in FIRST-HIT order, equal to
+        family.accumulate_family_scores over the host hit path.
 
-    def family_scores_batch(self, *args, **kw):
-        raise NotImplementedError("family score accumulation is not ported")
+        Runs the fused device calls + rollup program when the mapping
+        qualifies, otherwise the compact-hit host path through
+        native.family_scores."""
+        params = params or EngineParams()
+        dfs = self._device_family_scorer(mapping) if items else None
+        if dfs is None:
+            results, h = self.annotate_with_hits(items, params,
+                                                 want_best=want_best)
+            out_n, fam, hits_c, weight = self.family_scores_batch(mapping, h)
+            seq_scores = []
+            w = 0
+            for s in range(len(items)):
+                n = int(out_n[s])
+                seq_scores.append({
+                    int(fam[w + i]): F.SeqScore(int(hits_c[w + i]),
+                                                int(hits_c[w + i]),
+                                                np.float32(weight[w + i]))
+                    for i in range(n)})
+                w += n
+            return results, seq_scores
+
+        offsets, lengths = self.fa.pad_batch([s for _, s in items])
+        B = offsets.shape[0]
+        ccap = 4
+        fcap = None
+        while True:
+            calls_dev, call_cap, rows_dev, capf = dfs.score_family_packed(
+                offsets, lengths, params, ccap, fcap)
+            dense = DeviceScorer.unpack_dense(calls_dev.cpu().numpy(), B,
+                                              call_cap)
+            roll = DeviceFamilyScorer.finish_rollup_rows(
+                rows_dev.cpu().numpy(), capf)
+            if dense is None:
+                ccap *= 4
+                continue
+            if roll is None:
+                fcap = capf * 4
+                dfs._default_cap = max(dfs._default_cap, fcap)
+                continue
+            break
+        n_calls, cs, ce, cc, cf, cw = dense
+        if want_best:
+            nf, ofi, ocnt, owt = native.best_call_batch(
+                n_calls, cs, ce, cc, cf, cw)
+        results = []
+        for s, (sid, seq) in enumerate(items):
+            calls = [O.Call(int(cs[s, i]), int(ce[s, i]), int(cc[s, i]),
+                            int(cf[s, i]), np.float32(cw[s, i]))
+                     for i in range(int(n_calls[s]))]
+            best = finish_best_call(int(nf[s]), ofi[s], ocnt[s], owt[s],
+                                    self.function_of) if want_best else None
+            results.append(AnnotationResult(sid, len(seq), calls, None,
+                                            None, best))
+        n_per, fam, counts, weights, first = roll
+        seq_scores = []
+        k = 0
+        for s in range(B):
+            n = int(n_per[s])
+            order = np.argsort(first[k:k + n], kind="stable")
+            seq_scores.append({
+                int(fam[k + i]): F.SeqScore(int(counts[k + i]),
+                                            int(counts[k + i]),
+                                            np.float32(weights[k + i]))
+                for i in order})
+            k += n
+        return results, seq_scores
+
+    def best_family_matches(self, items, mapping,
+                            params: EngineParams | None = None,
+                            kmer_hit_threshold: int = 3,
+                            allow_ambiguous: bool = False,
+                            target_genus_id: int = 0,
+                            genus_filter: bool = True):
+        """Batch FamilyMapper::find_best_family_match
+        (family_mapper.cc:65-205): one fused device pass (calls + family
+        rollup) then the vectorized best-match scan.  Returns
+        list[family.BestMatch].  Without a device scorer for ``mapping``
+        it runs annotate_family + the scalar scan."""
+        params = params or EngineParams()
+        if not items:
+            return []
+        if self._device_family_scorer(mapping) is None:
+            results, seq_scores = self.annotate_family(items, mapping,
+                                                       params, want_best=True)
+            return [F.find_best_family_match(
+                r.best, seq_scores[i], mapping, kmer_hit_threshold,
+                allow_ambiguous, target_genus_id, genus_filter)
+                for i, r in enumerate(results)]
+        offsets, lengths = self.fa.pad_batch([s for _, s in items])
+        return self.best_family_matches_padded(
+            offsets, lengths, mapping, params, kmer_hit_threshold,
+            allow_ambiguous, target_genus_id, genus_filter)
+
+    FAMILY_MATCH_CHUNK = int(os.environ.get(
+        "CLOSE_KMERS_FAMILY_CHUNK", 4096))
+    FAMILY_MATCH_GROUP = int(os.environ.get(
+        "CLOSE_KMERS_FAMILY_GROUP", 4))   # chunks in flight at most
+
+    def _chunk_rows(self, B0: int, L: int) -> int:
+        """Rows per dispatch of best_family_matches_padded, sized as the
+        JAX engine sizes them: ~1.5M windows per chunk (at least
+        FAMILY_MATCH_CHUNK, at most 65536, a power of two), or the whole
+        request rounded up to a power of two (at least 256) when it is
+        smaller."""
+        W = max(1, L - 8)
+        CH = min(65536, max(self.FAMILY_MATCH_CHUNK,
+                            1 << max(1, (1_500_000 // W).bit_length() - 1)))
+        return CH if B0 > CH else max(256, 1 << max(B0 - 1, 0).bit_length())
+
+    def best_family_matches_padded(self, offsets, lengths, mapping,
+                                   params: EngineParams | None = None,
+                                   kmer_hit_threshold: int = 3,
+                                   allow_ambiguous: bool = False,
+                                   target_genus_id: int = 0,
+                                   genus_filter: bool = True,
+                                   as_arrays: bool = False):
+        """Array-native best_family_matches over a pre-padded [B, L]
+        offsets grid (e.g. the /fq_lookup ORF batcher,
+        translate.batch_orf_arrays).
+
+        The rows go in fixed-size chunks (the tail padded with empty
+        sequences), each one fused device pass with global packs for the
+        calls and the family groups.  At most FAMILY_MATCH_GROUP chunks
+        are in flight: the next chunk is dispatched, and its result's
+        copy to the host started, before the oldest is read back and
+        finished on the host.  Sticky caps are per sequence; an overflow
+        re-runs that chunk with what its readback says it needs."""
+        params = params or EngineParams()
+        dfs = self._device_family_scorer(mapping)
+        if dfs is None:
+            items = [(str(i), offsets[i, :int(lengths[i])])
+                     for i in range(offsets.shape[0])]
+            results, seq_scores = self.annotate_family(items, mapping,
+                                                       params, want_best=True)
+            ms = [F.find_best_family_match(
+                r.best, seq_scores[i], mapping, kmer_hit_threshold,
+                allow_ambiguous, target_genus_id, genus_filter)
+                for i, r in enumerate(results)]
+            return F.BestMatchColumns.from_objects(ms) if as_arrays else ms
+        B0 = int(offsets.shape[0])
+        if B0 == 0:
+            return F.BestMatchColumns.from_objects([]) if as_arrays else []
+        B = self._chunk_rows(B0, offsets.shape[1])
+        lengths = np.asarray(lengths, dtype=np.int32)
+        fold_calls, fold_rows = dfs.pack_flags(offsets.shape[1])
+        unpack_calls = DeviceScorer.unpack_dense2 if fold_calls \
+            else DeviceScorer.unpack_dense3
+
+        def run(c_off, c_len):
+            """One fused pass with the sticky caps; its two packs' copy
+            to the host starts at once, as one transfer.  Returns (call
+            cap, group cap, length of the calls pack, the readback)."""
+            gcap = dfs.bm_groups_per_seq * B
+            calls_dev, call_cap, rows_dev, _ = dfs.score_family_packed(
+                c_off, c_len, params, dfs.bm_calls_per_seq, -gcap,
+                slim_calls=True)
+            return (call_cap, gcap, calls_dev.shape[0],
+                    _Readback(torch.cat([calls_dev, rows_dev])))
+
+        def dispatch(a):
+            c_off = offsets[a:a + B]
+            c_len = lengths[a:a + B]
+            n = c_off.shape[0]
+            if n < B:
+                pad = np.full((B - n, offsets.shape[1]), 20, np.uint8)
+                c_off = np.concatenate([c_off, pad])
+                c_len = np.concatenate([c_len, np.zeros(B - n, np.int32)])
+            return c_off, c_len, n, run(c_off, c_len)
+
+        outs = []
+
+        def finish(chunk):
+            c_off, c_len, n, (call_cap, gcap, split, rb) = chunk
+            while True:
+                joined = rb.result()
+                calls_np, rows_np = joined[:split], joined[split:]
+                dense = unpack_calls(calls_np, B, call_cap)
+                roll = DeviceFamilyScorer.finish_rollup_global(
+                    rows_np, B, gcap, folded=fold_rows)
+                if dense is not None and roll is not None:
+                    break
+                if dense is None:
+                    need = -(-int(calls_np[:B].sum()) // B)
+                    dfs.bm_calls_per_seq = max(call_cap // B * 4, need)
+                if roll is None:
+                    need = -(-int(rows_np[:B].sum()) // B)
+                    dfs.bm_groups_per_seq = max(gcap // B * 4, need)
+                call_cap, gcap, split, rb = run(c_off, c_len)
+            n_calls, cc, cf, cw = dense
+            nf, ofi, ocnt, owt = native.best_call_batch(
+                n_calls, None, None, cc, cf, cw)
+            n_per, fam, counts, weights, first = roll
+            total = int(np.asarray(n_per[:n]).sum())
+            reduction = BestCallReduction(nf[:n], ofi[:n], ocnt[:n],
+                                          owt[:n], self.db.functions)
+            outs.append(F.find_best_family_matches_batch(
+                reduction, np.asarray(n_per[:n]), fam[:total],
+                counts[:total], weights[:total], first[:total],
+                mapping, kmer_hit_threshold, allow_ambiguous,
+                target_genus_id, genus_filter, as_arrays=as_arrays))
+
+        in_flight = max(1, self.FAMILY_MATCH_GROUP)
+        pending = collections.deque()
+        for a in range(0, B0, B):
+            if len(pending) >= in_flight:
+                finish(pending.popleft())
+            pending.append(dispatch(a))
+        while pending:
+            finish(pending.popleft())
+
+        if not as_arrays:
+            return [m for chunk in outs for m in chunk]
+        return F.BestMatchColumns.concat(outs)
+
+    def family_scores_batch(self, mapping, h: dict) -> tuple:
+        """Per-sequence family score accumulation against ``mapping``'s
+        CSR.  ``h``: compact hit arrays from annotate_with_hits."""
+        keys, offs, vals = mapping.fam_csr()
+        return native.family_scores(h["code"], h["row_off"], keys, offs, vals)

@@ -4,7 +4,8 @@ compaction of the emitted CALLs into one packed int32 buffer.
 
 Ported: ``neutral_scan_state``, ``_scan_score_core`` (whose loop is the
 ``scan_score`` kernel), ``probe_score`` (the counterpart of
-``_probe_score_jit``, with the slim 0/2/3 packs) and ``DeviceScorer``
+``_probe_score_jit``, with the slim 0/2/3 packs of ``compact_calls``,
+which the family program shares) and ``DeviceScorer``
 (``score_batch``, ``score_batch_packed``, ``slim_mode`` and the
 unpackers).  ``_best_call_device`` / ``_probe_best_jit`` /
 ``best_calls_batch`` are not ported yet, nor are the packed-upload
@@ -28,8 +29,10 @@ from .engine import DeviceDB, encode_windows, probe_windows, \
     stable_true_first
 
 # Copied from close_kmers_tpu/core/device_family.py: slim CALL pack plane
-# = (count << CALL_FOLD_SHIFT) | fi, legal when fi fits the shift.
+# = (count << CALL_FOLD_SHIFT) | fi, legal when counts fit CALL_CNT_BITS
+# (count <= W+1) and fi fits the shift.
 CALL_FOLD_SHIFT = 18
+CALL_CNT_BITS = 13
 
 
 def _scan_score_core(found, h_fi, h_av, h_wt, min_hits, min_weighted_hits,
@@ -56,19 +59,14 @@ def _scan_score(found, h_fi, h_av, h_wt, min_hits, min_weighted_hits,
     return emit, fields
 
 
-def probe_score(ddb: DeviceDB, offsets, lengths, params: EngineParams,
-                call_cap: int, slim: int = 0):
-    """Encode + probe + scan + CALL compaction (device_score.py::
-    _probe_score_jit).  Returns (out, n_hits_total): ``out`` is one int32
-    buffer, [B] per-sequence call counts followed by the planes of the
-    compacted calls -- (start, end, count, fi, wt-bits) for slim 0,
-    (count << CALL_FOLD_SHIFT | fi, wt-bits) for slim 2, (count, fi,
-    wt-bits) for slim 3 -- each ``call_cap`` long."""
-    hi, lo, valid = encode_windows(offsets, lengths)
-    found, p_fi, _p_oi, p_av, p_wt, _ = probe_windows(ddb, hi, lo, valid)
-    emit, (c_start, c_end, c_cnt, c_fi, c_wt) = _scan_score(
-        found, p_fi, p_av, p_wt, params.min_hits, params.min_weighted_hits,
-        params.max_gap, params.order_constraint)
+def compact_calls(emit, fields, call_cap: int, slim: int = 0):
+    """The emitted CALLs of a scan, left-packed into one int32 buffer:
+    [B] per-sequence call counts, then the planes of the compacted calls
+    -- (start, end, count, fi, wt-bits) for slim 0, (count <<
+    CALL_FOLD_SHIFT | fi, wt-bits) for slim 2, (count, fi, wt-bits) for
+    slim 3 -- each min(call_cap, B*(W+1)) long.  Shared by probe_score
+    and the family program (device_family.score_family)."""
+    c_start, c_end, c_cnt, c_fi, c_wt = fields
     n_calls = emit.sum(dim=1, dtype=torch.int32)
     # stable: keeps row-major (= per-sequence, position-ordered) order
     order = stable_true_first(emit.reshape(-1))[:call_cap]
@@ -84,8 +82,21 @@ def probe_score(ddb: DeviceDB, offsets, lengths, params: EngineParams,
     else:
         planes = [take(c_start), take(c_end), take(c_cnt), take(c_fi),
                   wt_bits]
-    out = torch.cat([n_calls, torch.stack(planes).reshape(-1)])
-    return out, found.sum(dtype=torch.int32)
+    return torch.cat([n_calls, torch.stack(planes).reshape(-1)])
+
+
+def probe_score(ddb: DeviceDB, offsets, lengths, params: EngineParams,
+                call_cap: int, slim: int = 0):
+    """Encode + probe + scan + CALL compaction (device_score.py::
+    _probe_score_jit).  Returns (out, n_hits_total): ``out`` is the
+    :func:`compact_calls` buffer."""
+    hi, lo, valid = encode_windows(offsets, lengths)
+    found, p_fi, _p_oi, p_av, p_wt, _ = probe_windows(ddb, hi, lo, valid)
+    emit, fields = _scan_score(
+        found, p_fi, p_av, p_wt, params.min_hits, params.min_weighted_hits,
+        params.max_gap, params.order_constraint)
+    return (compact_calls(emit, fields, call_cap, slim),
+            found.sum(dtype=torch.int32))
 
 
 def _unpack(out: np.ndarray, B: int, n_planes: int):

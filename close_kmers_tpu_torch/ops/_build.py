@@ -1,11 +1,12 @@
 """Build and load the port's CUDA kernels.
 
 At first use, every ``csrc/*.cu`` is compiled by ``nvcc`` for Hopper
-(``sm_90a``) into one shared library with a plain C interface,
-``close_kmers_tpu_torch/.build/libck_torch_kernels.so``, and loaded with
+(``sm_90a``), one ``nvcc`` per source, all started together, and the
+objects are linked into one shared library with a plain C interface,
+``close_kmers_tpu_torch/.build/libck_torch_kernels.so``, loaded with
 ctypes.  The library is rebuilt when any source under ``csrc/`` is newer
-than it.  No ``--use_fast_math``: the scan kernel's f32 sums must match
-the reference bit for bit.
+than it.  No ``--use_fast_math``: the scan and family-group kernels' f32
+sums must match the reference bit for bit.
 
 Each C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; :func:`check` raises if that is not 0.
@@ -25,7 +26,7 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, ".build")
 LIB = os.path.join(BUILD_DIR, "libck_torch_kernels.so")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-Xcompiler", "-fPIC"]
 
 _lib = None
 
@@ -54,15 +55,38 @@ def build(force: bool = False, verbose: bool = False) -> str:
             and os.path.getmtime(LIB) >= max(map(os.path.getmtime, deps))):
         return LIB
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{LIB}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", tmp, *srcs]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode:
-        raise RuntimeError(f"nvcc failed with exit code {proc.returncode}:\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    if verbose:
-        sys.stderr.write(proc.stdout + proc.stderr)
+    nvcc = _nvcc()
+    tag = f"{os.getpid()}.tmp"
+    jobs = []
+    for src in srcs:
+        obj = os.path.join(BUILD_DIR, f"{os.path.basename(src)}.{tag}.o")
+        cmd = [nvcc, *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+               "-c", "-o", obj, src]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    failed = []
+    for cmd, obj, proc in jobs:       # wait for every compiler started
+        out, err = proc.communicate()
+        if proc.returncode:
+            failed.append(f"nvcc failed with exit code {proc.returncode}:\n"
+                          f"{' '.join(cmd)}\n{out}{err}")
+        elif verbose:
+            sys.stderr.write(out + err)
+    objs = [obj for _, obj, _ in jobs]
+    try:
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        tmp = f"{LIB}.{tag}"
+        cmd = [nvcc, "-shared", "-o", tmp, *objs]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode:
+            raise RuntimeError(f"nvcc link failed with exit code "
+                               f"{proc.returncode}:\n{' '.join(cmd)}\n"
+                               f"{proc.stdout}{proc.stderr}")
+    finally:
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
     os.replace(tmp, LIB)   # atomic: a concurrent process never loads a torn file
     return LIB
 

@@ -9,9 +9,16 @@ KmerRequestServer/KmerRequest2 (kserver.cc, krequest2.cc).
   and Content-length only on the simple GET responses;
 * GET routes: /quit /version /genus_lookup/<g> /dump_mapping /metrics
   /checkpoint /dump_sizes;
-* POST /query.  The other POST actions (/add, /matrix, /lookup,
-  /fq_lookup, also under ``/mapping/<key>/``) are not ported yet and
-  answer as any unknown path does: 404 ``path not found``.
+* POST routes: /query /lookup /fq_lookup /add, and keyed
+  ``/mapping/<key>/(add|lookup)`` universes created on demand
+  (krequest2.cc:414-489).  /matrix (also ``/mapping/<key>/matrix``) is
+  not ported yet and answers as any unknown path does: 404
+  ``path not found``.
+
+Handler options mirror the reference (kmer_hit_threhsold [sic],
+find_best_match, find_reps, allow_ambiguous_functions, target_genus,
+details, find_best_call, silent); engine parameters are overridable per
+request (kguts.cc:244-268).
 """
 
 from __future__ import annotations
@@ -23,12 +30,16 @@ import pickle
 import re
 import sys
 import traceback
+import zlib
 
-from ..host import EngineParams, encoder, family_db, fasta, metrics, \
-    oracle as O
+import numpy as np
+
+from ..host import EngineParams, encoder, family as F, family_db, fasta, \
+    metrics, oracle as O, translate
 from ..core.api import KmerEngine
 
 REQUEST_RE = re.compile(r"^([A-Z]+) ([^?#]*)(\?([^#]*))?(#(.*))? HTTP/(\d+\.\d+)")
+MAPPING_PATH_RE = re.compile(r"^/mapping/([^/]+)(/(add|matrix|lookup))$")
 GENUS_PATH_RE = re.compile(r"^/genus_lookup/([^/]+)$")
 
 CHUNK = 1 << 20
@@ -64,6 +75,35 @@ class ServerContext:
         return await loop.run_in_executor(
             self._compute,
             lambda: self.engine.annotate_with_hits(items, params, **kw))
+
+    async def annotate_family(self, items, mapping, params, **kw):
+        """Run engine.annotate_family on the compute thread; returns
+        (results, per-sequence {family_id: SeqScore} dicts in first-hit
+        order)."""
+        loop = asyncio.get_running_loop()
+        return await loop.run_in_executor(
+            self._compute,
+            lambda: self.engine.annotate_family(items, mapping, params,
+                                                **kw))
+
+    async def best_family_matches(self, items, mapping, params, **kw):
+        """Run engine.best_family_matches (fused device pass + vectorized
+        best-match scan) on the compute thread."""
+        loop = asyncio.get_running_loop()
+        return await loop.run_in_executor(
+            self._compute,
+            lambda: self.engine.best_family_matches(items, mapping, params,
+                                                    **kw))
+
+    async def best_family_matches_padded(self, offsets, lengths, mapping,
+                                         params, **kw):
+        """Array-native best_family_matches on the compute thread (the
+        /fq_lookup path: a pre-padded ORF grid)."""
+        loop = asyncio.get_running_loop()
+        return await loop.run_in_executor(
+            self._compute,
+            lambda: self.engine.best_family_matches_padded(
+                offsets, lengths, mapping, params, **kw))
 
     def checkpoint(self) -> str:
         """Persist the mapping universes to a checkpoint file (the
@@ -201,6 +241,199 @@ async def handle_query(ctx, req, body, writer):
         await _write(writer, "".join(out))
 
 
+# handle_lookup, handle_add, handle_fq_lookup and process_reads are
+# copied from close_kmers_tpu/server/http.py (a module that imports jax);
+# they call the port's engine through the same ServerContext methods.
+
+async def handle_lookup(ctx, req, body, writer, mapping):
+    """/lookup (lookup_request.cc)."""
+    params = req.engine_params()
+    kmer_hit_threshold = req.int_param("kmer_hit_threhsold", 3)  # [sic]
+    find_best_match = req.int_param("find_best_match")
+    find_reps = req.int_param("find_reps")
+    allow_ambig = req.int_param("allow_ambiguous_functions")
+    target_genus = req.params.get("target_genus", "")
+    target_genus_id = 0
+    tg = mapping.lookup_genus(target_genus)
+    if tg:
+        try:
+            target_genus_id = int(tg)
+        except ValueError:
+            pass
+    family_mode = ctx.family_mode
+    await _write(writer, _status(req.http_version, 200, "OK") + "\n")
+
+    async for items in _fasta_batches(ctx, body):
+        out = []
+        ctx.metrics.inc("proteins", len(items))
+        if family_mode and find_best_match:
+            # fused device pass + vectorized best-match scan
+            matches = await ctx.best_family_matches(
+                items, mapping, params,
+                kmer_hit_threshold=kmer_hit_threshold,
+                allow_ambiguous=bool(allow_ambig),
+                target_genus_id=target_genus_id, genus_filter=True)
+            for (sid, _seq), m in zip(items, matches):
+                out.append(F.format_best_match_lookup(sid, m))
+            await _write(writer, "".join(out))
+            continue
+        if family_mode:
+            results, seq_scores = await ctx.annotate_family(
+                items, mapping, params)
+        else:
+            results, h = await ctx.annotate(items, params)
+        for s, r in enumerate(results):
+            if family_mode:
+                seq_score = seq_scores[s]
+            else:
+                a, b = int(h["row_off"][s]), int(h["row_off"][s + 1])
+                hits = [O.Hit(oI=int(h["oi"][k]), pos=int(h["pos"][k]),
+                              avg_off=0, fI=0, wt=0.0, code=int(h["code"][k]))
+                        for k in range(a, b)]
+                seq_score = F.accumulate_peg_scores(hits, mapping)
+            out.append(f"{r.seq_id}\n")
+            out.append(F.all_matches_rows(
+                seq_score, mapping, kmer_hit_threshold,
+                family_mode=family_mode,
+                family_reps=ctx.family_reps if find_reps else None))
+        await _write(writer, "".join(out))
+
+
+async def handle_add(ctx, req, body, writer, mapping):
+    """/add (add_request.cc:102-229): annotate + ingest into mapping."""
+    params = req.engine_params()
+    silent = req.int_param("silent")
+    eng = ctx.engine
+    await _write(writer, _status(req.http_version, 200, "OK") + "\n")
+
+    async for items in _fasta_batches(ctx, body):
+        out = []
+        ctx.metrics.inc("proteins", len(items))
+        results, _h = await ctx.annotate(items, params, want_hits=True,
+                                         want_otu=True, want_best=True)
+        for r in results:
+            if not silent:
+                out.append(f"PROTEIN-ID\t{r.seq_id}\t{r.seq_len}\n")
+                for c in r.calls:
+                    out.append(O.format_call(c, eng.function_of))
+                out.append(O.format_otu_stats(r.seq_id, r.seq_len, r.otu))
+                fn = r.best.function
+                if not fn or " ?? " in fn:
+                    fn = "hypothetical protein"
+                out.append(f"BEST-CALL\t{r.seq_id}\t{fn}\t"
+                           f"{O.fmt_float(r.best.score)}\t"
+                           f"{O.fmt_float(r.best.weighted_score)}\t"
+                           f"{O.fmt_float(r.best.score_offset)}\n")
+            pid = mapping.encode_peg(r.seq_id)
+            for hh in r.hits:
+                mapping.add_peg_mapping(pid, hh.code)
+        await _write(writer, "".join(out))
+
+
+async def handle_fq_lookup(ctx, req, body, writer):
+    """/fq_lookup (fq_process_request.cc): FASTQ (maybe gzipped) -> 6-frame
+    ORFs -> best family match per ORF -> best frame per read."""
+    params = req.engine_params()
+    await _write(writer, _status(req.http_version, 200, "OK") + "\n")
+
+    reads: list[tuple[str, str]] = []
+    parser = fasta.FastqParser(on_seq=lambda i, s: reads.append((i, s)))
+    decomp = None
+    first = True
+    async for data in body.chunks():
+        if first:
+            first = False
+            if len(data) >= 2 and data[0] == 0x1F and data[1] == 0x8B:
+                decomp = zlib.decompressobj(16 + zlib.MAX_WBITS)
+        if decomp is not None:
+            buf = data
+            text = b""
+            while buf:        # concatenated gzip members
+                text += decomp.decompress(buf)
+                if decomp.eof:
+                    buf = decomp.unused_data
+                    decomp = zlib.decompressobj(16 + zlib.MAX_WBITS)
+                else:
+                    buf = b""
+            parser.parse_chunk(text)
+        else:
+            parser.parse_chunk(data)
+        out = await process_reads(ctx, reads, params, req)
+        reads.clear()
+        if out:
+            await _write(writer, out)
+    parser.parse_complete()
+    out = await process_reads(ctx, reads, params, req)
+    reads.clear()
+    if out:
+        await _write(writer, out)
+
+
+_FRAME_OF_FPOS = (1, 2, 3, -1, -2, -3)
+
+
+async def process_reads(ctx, reads, params, req) -> str:
+    """Per-read 6-frame scan (fq_process_request.cc:298-365) against the
+    root mapping: the ORF batcher's padded grid goes straight to the
+    fused family pass, and the best frame is a (read x frame) reduction.
+    Returns the response lines of these reads."""
+    if not reads:
+        return ""
+    mapping = ctx.mapping_map.get("", None)
+    kmer_hit_threshold = req.int_param("kmer_hit_threhsold", 3)
+    kept = [(ri, rid, seq) for ri, (rid, seq) in enumerate(reads) if rid]
+    offsets, lengths, toks = translate.batch_orf_arrays(
+        [seq for _, _, seq in kept])
+    if offsets.shape[0] == 0:
+        return ""
+    matches = await ctx.best_family_matches_padded(
+        offsets, lengths, mapping, params,
+        kmer_hit_threshold=kmer_hit_threshold, genus_filter=False,
+        as_arrays=True)
+    scores = matches.score.astype(np.float64)
+
+    # Best-frame selection with the running-score copy quirk
+    # (fq_process_request.cc:318-348): a frame's running max equals its
+    # total (ORF scores >= 0), strict `>` makes the FIRST max-total frame
+    # win, and the captured match list is the winning frame's token
+    # prefix up to its LAST positive-score ORF.
+    R = len(kept)
+    tok_score = np.where(toks["orf"] >= 0, scores[toks["orf"]], 0.0)
+    totals = np.zeros((R, 6), dtype=np.float64)
+    np.add.at(totals, (toks["read"], toks["fpos"].astype(np.int64)),
+              tok_score)
+    best_score = totals.max(axis=1)
+    win_fpos = np.argmax(totals, axis=1)   # first max wins (strict >)
+
+    # tokens of each read's winning frame, in order
+    sel = (toks["fpos"] == win_fpos[toks["read"]]) \
+        & (best_score[toks["read"]] > 0.0)
+    s_read = toks["read"][sel]
+    s_len = toks["len"][sel]
+    s_orf = toks["orf"][sel]
+    s_score = tok_score[sel]
+    # prefix cut: last positive-score token per read
+    pos_idx = np.nonzero(s_score > 0)[0]
+    last_pos = np.full(R, -1, dtype=np.int64)
+    last_pos[s_read[pos_idx]] = pos_idx     # ascending -> last wins
+    keep_tok = (np.arange(len(s_read)) <= last_pos[s_read]) & (s_orf >= 0)
+
+    out = []
+    k = np.nonzero(keep_tok)[0]
+    bounds = np.searchsorted(s_read[k], np.arange(R + 1))
+    for rj, (ri, rid, _seq) in enumerate(kept):
+        if best_score[rj] <= 0.0:
+            continue
+        parts = [f"{rid}\t{_FRAME_OF_FPOS[win_fpos[rj]]}\t"
+                 f"{'%g' % best_score[rj]}"]
+        for t in k[bounds[rj]:bounds[rj + 1]]:
+            parts.append(
+                f"{s_len[t]}\t"
+                f"{F.format_best_match_fq(matches.materialize(int(s_orf[t])))}")
+        out.append("\t".join(parts) + "\n")
+    return "".join(out)
+
+
 async def _fasta_batches(ctx, body):
     """Incrementally parse the FASTA body, yielding batches of (id, seq)
     (lookup_request.cc:101-138)."""
@@ -237,10 +470,20 @@ async def handle_connection(reader, writer, ctx: ServerContext):
                                "Missing content length",
                                "Missing content length header\n")
                 return
-            if req.path == "/query":
-                await handle_query(ctx, req, BodyStream(reader, int(cl)),
-                                   writer)
-            else:
+            body = BodyStream(reader, int(cl))
+            key, action = "", req.path
+            m = MAPPING_PATH_RE.match(req.path)
+            if m:
+                key, action = m.group(1), m.group(2)
+            if action == "/add":
+                await handle_add(ctx, req, body, writer, ctx.mapping(key))
+            elif action == "/lookup":
+                await handle_lookup(ctx, req, body, writer, ctx.mapping(key))
+            elif action == "/fq_lookup":
+                await handle_fq_lookup(ctx, req, body, writer)
+            elif action == "/query":
+                await handle_query(ctx, req, body, writer)
+            else:      # /matrix is not ported yet
                 await _respond(writer, req.http_version, 404, "Not found",
                                "path not found\n")
     except (ConnectionResetError, BrokenPipeError):

@@ -12,11 +12,20 @@ import numpy as np
 import pytest
 import torch
 
+from close_kmers_tpu_torch.core.api import KmerEngine
+from close_kmers_tpu_torch.core.device_family import DeviceFamilyScorer
 from close_kmers_tpu_torch.core.device_score import DeviceScorer
 from close_kmers_tpu_torch.core.engine import FastAnnotator
-from close_kmers_tpu_torch.host import EngineParams, SignatureDB, params as P
-from close_kmers_tpu_torch.ops.probe_select import (probe_select,
+from close_kmers_tpu_torch.host import EngineParams, SignatureDB, \
+    family_db, params as P
+from close_kmers_tpu_torch.ops.family_group import (PAD_KEY, family_group,
+                                                    family_group_plain)
+from close_kmers_tpu_torch.ops.probe_select import (famwide_select,
+                                                    famwide_select_plain,
+                                                    probe_select,
                                                     probe_select_plain)
+from close_kmers_tpu_torch.ops.row_gather import (row_gather,
+                                                  row_gather_plain)
 from close_kmers_tpu_torch.ops.scan_score import (FLOAT_FIELDS, INT_FIELDS,
                                                   scan_score,
                                                   scan_score_plain)
@@ -147,3 +156,114 @@ def test_paths_on_card_match_cpu(cuda):
             assert np.array_equal(og, oc)
     assert probe_select.launches > before[0]
     assert scan_score.launches > before[1]
+
+
+@pytest.mark.parametrize("n,w", [(1, 1), (4099, 3), (20000, 33)])
+def test_row_gather_kernel_matches_plain(cuda, n, w):
+    rng = np.random.default_rng(n)
+    table = torch.from_numpy(
+        rng.integers(-1, 1 << 30, size=(3001, w)).astype(np.int32))
+    idx = torch.from_numpy(rng.integers(0, 3001, size=n).astype(np.int32))
+    before = row_gather.launches
+    got = row_gather(table.to(cuda), idx.to(cuda))
+    torch.cuda.synchronize()
+    assert row_gather.launches == before + 1
+    assert torch.equal(row_gather_plain(table, idx), got.cpu())
+    with pytest.raises(IndexError):
+        row_gather(table.to(cuda), torch.full((5,), 3001, dtype=torch.int32,
+                                              device=cuda))
+
+
+@pytest.mark.parametrize("wd,d", [(1, 1), (22, 3), (40, 2)])
+def test_famwide_select_kernel_matches_plain(cuda, wd, d):
+    rng = np.random.default_rng(wd * 10 + d)
+    H, N, lo_bits = 5000, 20000, 13
+    row_w = (2 + d) * wd + 5
+    tab = rng.integers(-1, 1 << 20, size=(H, row_w)).astype(np.int32)
+    lo_plane = np.full((H, wd), (1 << 30) | 0x1FFF, np.int32)
+    depth = rng.integers(0, wd + 1, size=H)
+    for h in range(H):
+        lo_plane[h, :depth[h]] = rng.choice(8000, size=depth[h],
+                                            replace=False)
+    fi = rng.integers(0, 1 << 18, size=(H, wd)).astype(np.int32)
+    tab[:, :wd] = np.where(lo_plane < 8000, (fi << lo_bits) | lo_plane,
+                           lo_plane)
+    hi = rng.integers(0, H, size=N).astype(np.int32)
+    lo = rng.integers(0, 8000, size=N).astype(np.int32)
+    for i in np.nonzero((rng.random(N) < 0.5) & (depth[hi] > 0))[0]:
+        lo[i] = lo_plane[hi[i], rng.integers(0, depth[hi[i]])]
+    hi[:50] = H + 3                                   # out of range
+    valid = rng.random(N) < 0.9
+    args = [torch.from_numpy(x) for x in (hi, lo, valid, tab)]
+    want = famwide_select_plain(*args, wd, d, lo_bits)
+    before = famwide_select.launches
+    got = famwide_select(*(a.to(cuda) for a in args), wd, d, lo_bits)
+    torch.cuda.synchronize()
+    assert famwide_select.launches == before + 1
+    assert want[0].sum() > N // 8
+    for w_, g in zip(want, got):
+        assert torch.equal(bits(w_), bits(g))
+
+
+@pytest.mark.parametrize("cap", [0, 3, 40, 901])
+def test_family_group_kernel_matches_plain(cuda, cap):
+    rng = np.random.default_rng(cap)
+    B, M = 777, 900
+    key = rng.integers(0, 60, size=(B, M)).astype(np.int32)
+    key[rng.random((B, M)) < 0.5] = PAD_KEY
+    wt = rng.choice(np.float32([1.0, 0.5, 1 / 3]), size=(B, M))
+    skey, perm = torch.sort(torch.from_numpy(key), dim=1, stable=True)
+    swt = torch.gather(torch.from_numpy(wt.astype(np.float32)), 1, perm)
+    spos = perm.to(torch.int32)
+    want = family_group_plain(skey, swt, spos, cap)
+    before = family_group.launches
+    got = family_group(skey.to(cuda), swt.to(cuda), spos.to(cuda), cap)
+    torch.cuda.synchronize()
+    assert family_group.launches == before + 1
+    assert int(want[0].sum()) > B
+    for w_, g in zip(want, got):
+        assert torch.equal(bits(w_), bits(g))
+
+
+def test_family_path_on_card_matches_cpu(cuda):
+    """DeviceFamilyScorer (famwide and two-gather) and the engine's
+    best-match path on the card equal the same calls on the CPU, and go
+    through the three family kernels."""
+    rng = np.random.default_rng(2)
+    db, prots = _db(rng)
+    mapping = family_db.KmerFamilyMapping()
+    for k in db.keys:
+        for f in set(rng.integers(0, 30, size=rng.integers(1, 4)).tolist()):
+            mapping.add_fam_mapping(int(f), int(k))
+    mapping.families = [family_db.FamilyData(
+        f"PGF_{f % 7:08d}", f"PLF_1_{f:08d}", 1, f"fn{f % 20}", f, 10, 3)
+        for f in range(30)]
+    offsets = np.full((64, 160), 20, np.uint8)
+    lengths = rng.integers(30, 150, size=64).astype(np.int32)
+    for b in range(64):
+        offsets[b, :lengths[b]] = np.resize(prots[b % len(prots)],
+                                            lengths[b])
+    before = (row_gather.launches, famwide_select.launches,
+              family_group.launches)
+    for fw in (True, False):
+        g = DeviceFamilyScorer(db, mapping, cuda, famwide=fw)
+        c = DeviceFamilyScorer(db, mapping, "cpu", famwide=fw)
+        for cap, row_cap in ((64, 0), (-4096, 0), (-4096, 16)):
+            og = g.score_family_packed(offsets, lengths, EngineParams(), 4,
+                                       cap, slim_calls=True, row_cap=row_cap)
+            oc = c.score_family_packed(offsets, lengths, EngineParams(), 4,
+                                       cap, slim_calls=True, row_cap=row_cap)
+            assert int(oc[0][:64].sum()) > 0
+            assert torch.equal(og[0].cpu(), oc[0])
+            assert torch.equal(og[2].cpu(), oc[2])
+    eg = KmerEngine(db, cuda, device_family_min=0)
+    ec = KmerEngine(db, "cpu", device_family_min=0)
+    alpha = np.array(list("ACDEFGHIKLMNPQRSTVWY"))
+    items = [(f"s{b}", "".join(alpha[offsets[b, :lengths[b]]]))
+             for b in range(64)]
+    want = ec.best_family_matches(items, mapping, genus_filter=False)
+    assert sum(1 for m in want if m.gfam_id) > 10
+    assert eg.best_family_matches(items, mapping, genus_filter=False) == want
+    after = (row_gather.launches, famwide_select.launches,
+             family_group.launches)
+    assert all(a > b for a, b in zip(after, before))

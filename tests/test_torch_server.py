@@ -1,7 +1,10 @@
 """Port parity for the serving path: KmerEngine.annotate_with_hits
-against the JAX KmerEngine, the four /query golden conversations
-byte-identical through the port's server, the port's CLI refusals, and
-proof that the port imports without jax."""
+against the JAX KmerEngine, the /query, /lookup, /add and /fq_lookup
+golden conversations byte-identical through the port's server, the
+device family path byte-identical to the host path (and to the JAX
+server) on every /lookup mode and /fq_lookup, /matrix still unported,
+the port's CLI refusals and family warmup, and proof that the port
+imports without jax."""
 
 import asyncio
 import os
@@ -22,6 +25,7 @@ from close_kmers_tpu_torch.utils.device import resolve_device
 
 from test_engine import random_db, random_seqs
 from test_golden import CONVS, GOLDEN, play
+from test_server import data_dir, post  # noqa: F401  (data_dir: fixture)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DATA = os.path.join(GOLDEN, "data")
@@ -87,7 +91,8 @@ def port_server():
 
 
 @pytest.mark.parametrize("name", ["version", "query", "query_details",
-                                  "query_best"])
+                                  "query_best", "lookup", "lookup_best",
+                                  "wadd", "yfq", "zfq_gz"])
 def test_golden_conversation_through_port(port_server, name):
     with open(os.path.join(GOLDEN, "queries.fa"), "rb") as f:
         body = f.read()
@@ -96,13 +101,101 @@ def test_golden_conversation_through_port(port_server, name):
     assert play(port_server, CONVS[name](body)) == want
 
 
-@pytest.mark.parametrize("path", [b"/lookup", b"/add", b"/matrix",
-                                  b"/fq_lookup", b"/mapping/k/add"])
+@pytest.mark.parametrize("path", [b"/matrix", b"/mapping/k/matrix",
+                                  b"/mapping/k/fq_lookup", b"/nope"])
 def test_unported_post_answers_as_unknown_path(port_server, path):
+    """/matrix is not ported yet: it answers as an unknown path does."""
     req = b"POST " + path + b" HTTP/1.1\nContent-length: 3\n\n>a\n"
     assert play(port_server, req) == (
         b"HTTP/1.1 404 Not found\nContent-type: text/plain\n"
         b"Content-length: 15\n\npath not found\n")
+
+
+def _serve(ctx):
+    """Serve ``ctx`` on a thread; returns (port, stop)."""
+    from close_kmers_tpu_torch.server.http import handle_connection as th
+    from close_kmers_tpu.server.http import handle_connection as jh
+    handle = th if isinstance(ctx.engine, KmerEngine) else jh
+    loop = asyncio.new_event_loop()
+    holder = {}
+    ready = threading.Event()
+
+    async def run():
+        srv = await asyncio.start_server(
+            lambda r, w: handle(r, w, ctx), "127.0.0.1", 0)
+        holder["port"] = srv.sockets[0].getsockname()[1]
+        ready.set()
+        async with srv:
+            await ctx.stop_event.wait()
+
+    t = threading.Thread(target=lambda: loop.run_until_complete(run()),
+                         daemon=True)
+    t.start()
+    assert ready.wait(60)
+
+    def stop():
+        loop.call_soon_threadsafe(ctx.stop_event.set)
+        t.join(30)
+        assert not t.is_alive()
+    return holder["port"], stop
+
+
+@pytest.fixture(scope="module")
+def family_servers(data_dir):  # noqa: F811
+    """Three servers on tests/test_server.py's family data: the port on
+    its host family path, the port forced onto the device family program
+    (device_family_min=0), and the JAX package's."""
+    from close_kmers_tpu.cli.kser import load_server_context as jax_load
+
+    d, prots, fam_spec, funcs = data_dir
+    host = kser.load_server_context(str(d), batch_size=64, device="cpu")
+    dev = kser.load_server_context(str(d), batch_size=64, device="cpu")
+    dev.engine.device_family_min = 0
+    ref = jax_load(str(d), batch_size=64)
+    assert host.family_mode and dev.family_mode
+    servers = [_serve(c) for c in (host, dev, ref)]
+    yield [p for p, _ in servers], dev, prots, fam_spec
+    for _, stop in servers:
+        stop()
+
+
+def test_device_family_server_byte_identical(family_servers):
+    """Every /lookup mode and /fq_lookup give the same bytes from the
+    port's host path, its device family program and the JAX server."""
+    ports, dev, prots, fam_spec = family_servers
+    body = "".join(f">{p}\n{s}\n" for p, s in prots.items()).encode()
+    body += b">junk\nXXXXAAAA\n"
+    table = {"A": "GCG", "C": "TGC", "D": "GAT", "E": "GAA", "F": "TTT",
+             "G": "GGT", "H": "CAT", "I": "ATT", "K": "AAA", "L": "CTG",
+             "M": "ATG", "N": "AAC", "P": "CCG", "Q": "CAG", "R": "CGT",
+             "S": "AGC", "T": "ACC", "V": "GTT", "W": "TGG", "Y": "TAT"}
+    dna = "".join(table[c] for c in prots[fam_spec[0][0]][:40])
+    fq = f"@read1\n{dna}\n+\n{'I' * len(dna)}\n".encode()
+    for path, payload in (
+            ("/lookup?find_best_match=1&target_genus=Escherichia", body),
+            ("/lookup?find_best_match=1&allow_ambiguous_functions=1", body),
+            ("/lookup", body), ("/lookup?find_reps=1", body),
+            ("/fq_lookup", fq)):
+        got = [post(p, path, payload) for p in ports]
+        assert "PGF_00000000" in got[0], path
+        assert got[0] == got[1] == got[2], path
+    root = dev.mapping_map[""]
+    assert dev.engine._family_scorers[root][1] is not None
+    assert not hasattr(root, "_device_scorer")
+
+
+def test_kser_family_warmup_raises(monkeypatch):
+    """A family-mode server whose family path fails does not open: the
+    warmup raises instead of skipping."""
+    ctx = kser.load_server_context(DATA, batch_size=64, device="cpu")
+    assert ctx.family_mode
+
+    def boom(*a, **kw):
+        raise RuntimeError("family path broken")
+
+    monkeypatch.setattr(ctx.engine, "best_family_matches", boom)
+    with pytest.raises(RuntimeError, match="family path broken"):
+        kser.warmup_context(ctx)
 
 
 def test_port_imports_without_jax():
