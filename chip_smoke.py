@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Smoke run of the torch port's /query and family paths on one NVIDIA card.
+"""Smoke run of the torch port's /query, family and probe-gather paths on
+one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -10,11 +11,20 @@ card, and exits 1 without one.
 
 1. Device and build: the card's name and power limit (nvidia-smi), then
    ``nvcc`` builds the kernels for sm_90a (build seconds printed).
-2. Kernels against their plain torch versions at main-path shapes, exact
-   equality, times from CUDA events: probe_select and scan_score on one
-   4096 x 300-aa batch against the real-size DB of phase 4, and
-   row_gather, famwide_select and family_group on the same batch against
-   the family universe of phase 4 (D = 3).
+2. Kernels against their plain torch versions, exact equality, times
+   from CUDA events: probe_select and scan_score on one 4096 x 300-aa
+   batch against the real-size DB of phase 4; row_gather, famwide_select
+   and family_group on the same batch against the family universe of
+   phase 4 (D = 3); probe_select again on the deep DB's sub blocks; and
+   the four probe-gather kernels at scripts/gather_exp.py's shapes
+   (dma_gather: 2,490,000 ids from a [3.2M, 128] table; vgather:
+   2,488,320 ids on a 448 x 128 tile; hbmstream: [3,198,976, 128] in
+   blocks of 2048 rows; dmaflush: 32,768 copies of 8 x 128).
+   Tiers: the 20.5M-kmer DB of phase 4 built in each probe tier by
+   ``DeviceDB.from_db`` flags (the six variants of
+   tests/test_engine.py::test_probe_layout_parity), one table at a time;
+   each tier's probe of the batch must equal the payload-wide probe
+   (ms per batch and peak memory printed).
 3. The golden server on the card: the port's kser context on
    tests/golden/data with device="cuda", and the version / query /
    query_details / query_best / lookup / lookup_best / wadd / yfq /
@@ -43,8 +53,18 @@ card, and exits 1 without one.
      (server.http.process_reads: batch_orf_arrays,
      best_family_matches_padded(as_arrays=True), best-frame reduction);
      a 1,000-read sample equal to the host path's output.
-5. All five kernels' launch counters, reset just before phases 3-4, must
-   be above 0.
+   * deep: scripts/gather_exp.py deepcmp's DB (20M random keys over
+     64,000 hi buckets, ~312 per bucket, PATRIC density), which the
+     auto-ladder puts on the sub_blocks tier; 65,536 proteins spelled
+     from its kmers (37 kmers of one function each, so calls form)
+     through the /query checks above.
+   * the probe-gather experiments: ``python -m
+     close_kmers_tpu_torch.scripts.gather_exp`` with every experiment
+     it runs, deepcmp on the deep DB (deep_sub equal to deep_bin on
+     2.49M windows).
+5. All nine kernels' launch counters, reset just before phases 3-4, must
+   be above 0, and probe_select must have launched on the deep DB's
+   sub_blocks path.
 
 The last lines are the kernels' JSON record, the nvidia-smi line and
 ``{"ok": true, "device": {...}}``.
@@ -76,6 +96,16 @@ SAMPLE = 4096
 N_READS = 20_000
 READ_LEN = 150
 READ_SAMPLE = 1000
+# tests/test_engine.py::test_probe_layout_parity's from_db variants
+TIER_VARIANTS = (
+    ("binary_search", dict(wide=False, sub=False, wide_lo=False,
+                           fused=False)),
+    ("scale_lo_wide", dict(wide=False, sub=False, fused=False)),
+    ("fused_wide", dict(wide=False, sub=False)),
+    ("sub_blocks", dict(wide=False, sub=True, fused=False)),
+    ("lo_wide", dict(wide=True, wide_payload=False, fused=False)),
+    ("payload_wide", dict(wide=True, wide_payload=True)),
+)
 
 
 class SmokeFailure(RuntimeError):
@@ -194,7 +224,6 @@ def max_abs_err(want, got) -> float:
     import torch
     err = 0.0
     for w, g in zip(want, got):
-        w, g = w.cpu(), g.cpu()
         if w.dtype == torch.float32:
             check(torch.equal(w.view(torch.int32), g.view(torch.int32)),
                   "f32 plane differs bit-wise")
@@ -330,6 +359,258 @@ def phase_family_kernels(T, TF, dfs, off_d, len_d):
         replaces="close_kmers_tpu/core/device_family.py:233",
         max_abs_err=err, ms=ms, plain_ms=plain_ms)
     return out
+
+
+def phase_gather_kernels(device):
+    """Phase 2, probe-gather half: the four kernels of the probe-gather
+    experiments against their plain versions at the experiment shapes.
+    ``ms`` is the launch alone (``_launch_*``); the wrappers that check
+    their ids read the range back to the host first, printed beside."""
+    import torch
+    from close_kmers_tpu_torch.ops import gather_exp as gx
+    from close_kmers_tpu_torch.scripts import gather_exp as GX
+    gen = torch.Generator(device=device).manual_seed(2)
+
+    def randint(high, size):
+        return torch.randint(0, high, size, generator=gen, device=device,
+                             dtype=torch.int32)
+
+    out = {}
+
+    def hold(name, replaces, what, checked, launch, plain, plain_reps):
+        got = checked()
+        torch.cuda.synchronize()
+        err = max_abs_err([plain()], [got])
+        check(bool((got != 0).any()), f"{name} gave only zeros")
+        ms = cuda_ms(launch, 20)
+        plain_ms = cuda_ms(plain, plain_reps)
+        line = f"{name}: {what}: kernel {ms:.4f} ms"
+        if checked is not launch:
+            line += f" ({cuda_ms(checked, 10):.4f} ms with its id-range check)"
+        log(f"{line}, plain {plain_ms:.4f} ms, max_abs_err {err}")
+        out[name] = dict(name=name, route="cuda",
+                         source="close_kmers_tpu_torch/csrc/gather_exp.cu",
+                         replaces=replaces, max_abs_err=err, ms=ms,
+                         plain_ms=plain_ms)
+        return ms
+
+    tbl = randint(100, (GX.N_ROWS, 128))
+    idx = randint(GX.N_ROWS, (GX.N_IDX,))
+    hold("dma_gather", "scripts/gather_exp.py:109",
+         f"{GX.N_IDX} ids x 128 int32 from {tuple(tbl.shape)}, depth 16",
+         lambda: gx.dma_gather(tbl, idx),
+         lambda: gx._launch_dma_gather(tbl, idx),
+         lambda: gx.dma_gather_plain(tbl, idx), 20)
+    del tbl, idx
+
+    rows, chunk = gx.VGATHER_TILE_ROWS, GX.VGATHER_CHUNK
+    tile = randint(100, (rows, 128))
+    vidx = randint(rows, (GX.N_IDX // chunk * chunk,))
+    hold("vgather", "scripts/gather_exp.py:163",
+         f"{vidx.numel()} ids in chunks of {chunk} on a {rows} x 128 tile",
+         lambda: gx.vgather(tile, vidx, chunk),
+         lambda: gx._launch_vgather(tile, vidx, chunk),
+         lambda: gx.vgather_plain(tile, vidx, chunk), 10)
+    del tile, vidx
+
+    nr = GX.N_ROWS // GX.HBM_BLK * GX.HBM_BLK
+    tbl = randint(3, (nr, 128))
+    fn = lambda: gx.hbmstream(tbl, GX.HBM_BLK)           # noqa: E731
+    ms = hold("hbmstream", "scripts/gather_exp.py:196",
+              f"{tuple(tbl.shape)} int32 in blocks of {GX.HBM_BLK} rows",
+              fn, fn, lambda: gx.hbmstream_plain(tbl, GX.HBM_BLK), 5)
+    log(f"hbmstream: {nr * 128 * 4 / ms / 1e6:.0f} GB/s")
+    del tbl
+
+    perm = torch.randperm(GX.FLUSH_DMAS, generator=gen, device=device)
+    dst = perm.to(torch.int32).reshape(-1, GX.FLUSH_PER_PROG)
+    buf = randint(100, (GX.FLUSH_PER_PROG * GX.FLUSH_RPD, 128))
+    rpd = GX.FLUSH_RPD
+    hold("dmaflush", "scripts/gather_exp.py:216",
+         f"{GX.FLUSH_DMAS} copies of {rpd} x 128 int32",
+         lambda: gx.dmaflush(dst, buf, rpd),
+         lambda: gx._launch_dmaflush(dst, buf, rpd),
+         lambda: gx.dmaflush_plain(dst, buf, rpd), 10)
+    return out
+
+
+def phase_sub_select(T, ddb, off_d, len_d):
+    """Phase 2: probe_select against its plain version on the sub_blocks
+    tier's shapes (the deep DB's block rows, one 4096-protein batch)."""
+    import torch
+    from close_kmers_tpu_torch.ops.probe_select import (probe_select,
+                                                        probe_select_plain)
+    hi, lo, valid = T.encode_windows(off_d, len_d)
+    rows = T.sub_block_ids(ddb, hi, lo, valid).reshape(-1)
+    args = (rows, lo.reshape(-1), valid.reshape(-1), ddb.sub_blocks,
+            ddb.sub_w, ddb.n)
+    got = probe_select(*args)
+    torch.cuda.synchronize()
+    err = max_abs_err(probe_select_plain(*args), got)
+    check(int(got[0].sum()) > 0, "the sub-block probe found no hits")
+    ms = cuda_ms(lambda: probe_select(*args), 20)
+    plain_ms = cuda_ms(lambda: probe_select_plain(*args), 5)
+    log(f"probe_select on sub blocks {tuple(ddb.sub_blocks.shape)} (sub_w "
+        f"{ddb.sub_w}), {rows.numel()} windows: kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, max_abs_err {err}")
+
+
+def phase_tiers(T, db, ddb, off_d, len_d):
+    """Tier phase: ``db`` built in each probe tier by from_db flags, one
+    table at a time; each tier's probe of the batch must equal the
+    payload-wide probe of ``ddb``.  Returns {label: (ms, peak bytes above
+    the resident tensors)}."""
+    import torch
+    check(ddb.tier == "payload_wide", f"the corpus DB took {ddb.tier}")
+    hi, lo, valid = T.encode_windows(off_d, len_d)
+    want = T.probe_windows(ddb, hi, lo, valid)
+    out = {}
+    for label, kw in TIER_VARIANTS:
+        t0 = time.time()
+        d = T.DeviceDB.from_db(db, off_d.device, **kw)
+        torch.cuda.synchronize()
+        built = time.time() - t0
+        check(d.tier == label.replace("scale_", ""),
+              f"{label} flags built the {d.tier} tier")
+        table = sum(getattr(d, f).numel() * 4 for f in T.DeviceDB.ARRAYS
+                    if getattr(d, f) is not None)
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        got = T.probe_windows(d, hi, lo, valid)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        max_abs_err(want, got)
+        ms = cuda_ms(lambda: T.probe_windows(d, hi, lo, valid), 10)
+        log(f"tiers: {label} ({d.tier}): {table} B of tables built and "
+            f"uploaded in {built:.1f} s; probe of {hi.numel()} windows "
+            f"{ms:.4f} ms, peak {peak} B above the resident tensors; equal "
+            f"to the payload-wide probe")
+        out[label] = (ms, peak)
+        del d, got
+        torch.cuda.empty_cache()
+    return out
+
+
+def spelled_queries(db, n: int, rng):
+    """``n`` proteins of PROT_LEN aa, each PROT_LEN // 8 back-to-back DB
+    kmers of one function (so that calls form), then random residues,
+    padded as build_corpus pads."""
+    n_k = PROT_LEN // 8
+    order = np.argsort(db.fi, kind="stable")
+    fi_sorted = db.fi[order]
+    funcs = np.unique(fi_sorted)
+    first = np.searchsorted(fi_sorted, funcs)
+    count = np.searchsorted(fi_sorted, funcs, side="right") - first
+    f = rng.integers(0, len(funcs), size=n)
+    pick = first[f][:, None] + (rng.random((n, n_k))
+                                * count[f][:, None]).astype(np.int64)
+    keys = db.keys[order[pick]]
+    pow20 = 20 ** np.arange(7, -1, -1, dtype=np.int64)
+    width = -(-(PROT_LEN + 8) // 8) * 8
+    offsets = np.full((n, width), 20, dtype=np.uint8)
+    offsets[:, :8 * n_k] = ((keys[:, :, None] // pow20) % 20).reshape(n, -1)
+    offsets[:, 8 * n_k:PROT_LEN] = rng.integers(0, 20,
+                                                size=(n, PROT_LEN - 8 * n_k))
+    return offsets, np.full(n, PROT_LEN, dtype=np.int32)
+
+
+def phase_query(host, T, ds, eng, db, offsets, lengths, params, label):
+    """Phase 4, /query on one DB: every query through DeviceScorer (slim
+    pack + native.best_call_batch), SAMPLE through KmerEngine.
+    annotate_with_hits, and the sample against native.HashPipeline and
+    the searchsorted native.score_batch reference.  Returns (DeviceScorer
+    proteins/s, engine proteins/s)."""
+    import torch
+    n_query = len(offsets)
+    slim = ds.slim_mode()
+    unpack = {2: ds.unpack_dense2, 3: ds.unpack_dense3}[slim]
+    chunks = [(np.ascontiguousarray(offsets[a:a + BATCH]),
+               np.ascontiguousarray(lengths[a:a + BATCH]))
+              for a in range(0, n_query, BATCH)]
+
+    def score_all(cap_per_seq):
+        counts = []
+        n_calls_total = 0
+        for c_off, c_len in chunks:
+            cap = cap_per_seq
+            while True:
+                out, cap_n = ds.score_batch_packed(c_off, c_len, params,
+                                                   calls_per_seq_cap=cap,
+                                                   slim=slim)
+                dense = unpack(out.cpu().numpy(), len(c_off), cap_n)
+                if dense is not None:
+                    break
+                cap *= 4
+            n_calls, cc, cf, cw = dense
+            host.native.best_call_batch(n_calls, None, None, cc, cf, cw)
+            counts.append((n_calls, cc, cf, cw))
+            n_calls_total += int(n_calls.sum())
+        return counts, n_calls_total
+
+    score_all(2)                                     # warm-up pass
+    passes = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        counts, n_calls_total = score_all(2)
+        torch.cuda.synchronize()
+        passes.append(time.time() - t0)
+    dt_ds = sorted(passes)[1]
+    rate_ds = n_query / dt_ds
+    log(f"phase 4 {label}: DeviceScorer slim={slim} on {ds.ddb.tier}: "
+        f"{n_query} proteins, {n_calls_total} calls per pass; passes "
+        f"{passes} s; median {dt_ds:.4f} s = {rate_ds:.0f} proteins/s")
+
+    alpha = np.frombuffer(host.encoder.PROT_ALPHA.encode(), np.uint8)
+    items = [(f"q{i}", alpha[offsets[i, :lengths[i]]].tobytes().decode())
+             for i in range(SAMPLE)]
+    eng.annotate_with_hits(items[:64], params, want_otu=True,
+                           want_code=False)             # warm-up
+    torch.cuda.synchronize()
+    t0 = time.time()
+    results, _h = eng.annotate_with_hits(items, params, want_otu=True,
+                                         want_code=False)
+    dt_eng = time.time() - t0
+    rate_eng = SAMPLE / dt_eng
+    log(f"phase 4 {label}: KmerEngine.annotate_with_hits on "
+        f"{eng.fa.ddb.tier}: {SAMPLE} proteins in {dt_eng:.3f} s = "
+        f"{rate_eng:.0f} proteins/s")
+
+    # correctness on the sample: independent CPU references
+    s_off, s_len = offsets[:SAMPLE], lengths[:SAMPLE]
+    t0 = time.time()
+    hp_counts = host.native.HashPipeline(db).run(s_off, s_len,
+                                                 params.min_hits,
+                                                 params.max_gap)
+    n_ref, cs, ce, cc, cf, cw, _ = reference_calls(host, T, db, s_off, s_len,
+                                                   params)
+    log(f"phase 4 {label}: CPU references for {SAMPLE} proteins in "
+        f"{time.time() - t0:.1f} s")
+    ds_n, ds_cc, ds_cf, ds_cw = counts[0]
+    check(np.array_equal(hp_counts, n_ref),
+          "HashPipeline and the searchsorted reference disagree")
+    check(np.array_equal(ds_n, hp_counts),
+          "DeviceScorer call counts differ from HashPipeline")
+    check(int(ds_n.sum()) > 0, "no calls in the sample")
+    eng_n = np.array([len(r.calls) for r in results])
+    check(np.array_equal(eng_n, hp_counts),
+          "KmerEngine call counts differ from HashPipeline")
+    for s, r in enumerate(results):
+        want = [(int(cs[s, i]), int(ce[s, i]), int(cc[s, i]), int(cf[s, i]),
+                 int(np.float32(cw[s, i]).view(np.int32)))
+                for i in range(int(n_ref[s]))]
+        got = [(c.start, c.end, c.count, c.fI,
+                int(np.float32(c.weighted).view(np.int32)))
+               for c in r.calls]
+        check(got == want, f"KmerEngine calls differ for query {s}")
+        got_ds = [(int(ds_cc[s, i]), int(ds_cf[s, i]),
+                   int(np.float32(ds_cw[s, i]).view(np.int32)))
+                  for i in range(int(ds_n[s]))]
+        check(got_ds == [w[2:] for w in want],
+              f"DeviceScorer calls differ for query {s}")
+    log(f"phase 4 {label}: {SAMPLE}-protein sample matches the native CPU "
+        f"references ({int(n_ref.sum())} calls)")
+    return rate_ds, rate_eng
 
 
 def _reads_body(name: str) -> bytes:
@@ -613,11 +894,13 @@ def main() -> int:
         from close_kmers_tpu_torch.core.api import KmerEngine
         from close_kmers_tpu_torch.core.device_score import DeviceScorer
         from close_kmers_tpu_torch.ops import _build
+        from close_kmers_tpu_torch.ops import gather_exp as gx
         from close_kmers_tpu_torch.ops.family_group import family_group
         from close_kmers_tpu_torch.ops.probe_select import (famwide_select,
                                                             probe_select)
         from close_kmers_tpu_torch.ops.row_gather import row_gather
         from close_kmers_tpu_torch.ops.scan_score import scan_score
+        from close_kmers_tpu_torch.scripts import gather_exp as GX
         from close_kmers_tpu_torch.utils.device import (
             gpu_name_and_power_limit, resolve_device)
     except ImportError as e:
@@ -631,7 +914,9 @@ def main() -> int:
     t_start = time.time()
     wrappers = {"probe_select": probe_select, "scan_score": scan_score,
                 "row_gather": row_gather, "famwide_select": famwide_select,
-                "family_group": family_group}
+                "family_group": family_group, "dma_gather": gx.dma_gather,
+                "vgather": gx.vgather, "hbmstream": gx.hbmstream,
+                "dmaflush": gx.dmaflush}
 
     # -- phase 1: device and build
     log(f"card: {card} (torch {torch.__version__}, CUDA {torch.version.cuda},"
@@ -640,7 +925,7 @@ def main() -> int:
     _build.build(force=True, verbose=True)
     log(f"phase 1: nvcc built {_build.LIB} in {time.time() - t0:.1f} s")
 
-    # -- set-up: the real-size DB, family universe and queries (host)
+    # -- set-up: the real-size DBs, family universe and queries (host)
     t0 = time.time()
     db, offsets, lengths, src_rng = build_corpus(host)
     dbf, mapping = make_family_universe(host, db, src_rng)
@@ -662,13 +947,37 @@ def main() -> int:
     log(f"set-up: family table {tuple(dfs.fdb.fam.shape)} and famwide rows "
         f"{tuple(dfs.famwide.shape)} (W={dfs.fam_w}, D={dfs.fam_d}) built "
         f"and uploaded in {time.time() - t0:.1f} s")
+    t0 = time.time()
+    db_deep = GX.deep_db()
+    t1 = time.time()
+    d_off, d_len = spelled_queries(db_deep, N_QUERY, np.random.default_rng(5))
+    log(f"set-up: deep DB of {len(db_deep):,} keys over "
+        f"{GX.EXP_DEEP_SPAN:,} hi buckets (max bucket {db_deep.max_bucket}) "
+        f"in {t1 - t0:.1f} s and {N_QUERY} spelled queries in "
+        f"{time.time() - t1:.1f} s, built on the host")
+    t0 = time.time()
+    ds_deep = DeviceScorer(db_deep, device)
+    eng_deep = KmerEngine(db_deep, device)
+    torch.cuda.synchronize()
+    check(ds_deep.ddb.tier == eng_deep.fa.ddb.tier == "sub_blocks",
+          f"the deep DB took the {ds_deep.ddb.tier} tier, not sub_blocks")
+    log(f"set-up: two sub_blocks tables (header "
+        f"{tuple(ds_deep.ddb.sub_header.shape)}, blocks "
+        f"{tuple(ds_deep.ddb.sub_blocks.shape)}, sub_w {ds_deep.ddb.sub_w}) "
+        f"built and uploaded in {time.time() - t0:.1f} s")
 
-    # -- phase 2: kernels against their plain versions
+    # -- phase 2: kernels against their plain versions, tiers against the
+    # payload-wide probe
     off_d = torch.from_numpy(offsets[:BATCH]).to(device)
     len_d = torch.from_numpy(lengths[:BATCH]).to(device)
     kernels = phase_kernels(T, ds.ddb, off_d, len_d, params)
     kernels.update(phase_family_kernels(T, TF, dfs, off_d, len_d))
-    log("phase 2: all five kernels equal their plain versions")
+    phase_sub_select(T, ds_deep.ddb, torch.from_numpy(d_off[:BATCH]).to(
+        device), torch.from_numpy(d_len[:BATCH]).to(device))
+    kernels.update(phase_gather_kernels(device))
+    log(f"phase 2: all {len(kernels)} kernels equal their plain versions")
+    tiers = phase_tiers(T, db, ds.ddb, off_d, len_d)
+    log(f"phase 2: all {len(tiers)} tier probes equal the payload-wide probe")
 
     # -- the main path, counted (and its peak device memory)
     for fn in wrappers.values():
@@ -680,111 +989,39 @@ def main() -> int:
     log("phase 3: golden conversations byte-identical on the card")
 
     # -- phase 4: real size
-    slim = ds.slim_mode()
-    unpack = {2: DeviceScorer.unpack_dense2,
-              3: DeviceScorer.unpack_dense3}[slim]
-    chunks = [(np.ascontiguousarray(offsets[a:a + BATCH]),
-               np.ascontiguousarray(lengths[a:a + BATCH]))
-              for a in range(0, N_QUERY, BATCH)]
-
-    def score_all(cap_per_seq):
-        counts = []
-        n_calls_total = 0
-        for c_off, c_len in chunks:
-            cap = cap_per_seq
-            while True:
-                out, cap_n = ds.score_batch_packed(c_off, c_len, params,
-                                                   calls_per_seq_cap=cap,
-                                                   slim=slim)
-                dense = unpack(out.cpu().numpy(), len(c_off), cap_n)
-                if dense is not None:
-                    break
-                cap *= 4
-            n_calls, cc, cf, cw = dense
-            host.native.best_call_batch(n_calls, None, None, cc, cf, cw)
-            counts.append((n_calls, cc, cf, cw))
-            n_calls_total += int(n_calls.sum())
-        return counts, n_calls_total
-
-    score_all(2)                                     # warm-up pass
-    passes = []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t0 = time.time()
-        counts, n_calls_total = score_all(2)
-        torch.cuda.synchronize()
-        passes.append(time.time() - t0)
-    dt_ds = sorted(passes)[1]
-    rate_ds = N_QUERY / dt_ds
-    log(f"phase 4: DeviceScorer slim={slim}: {N_QUERY} proteins, "
-        f"{n_calls_total} calls per pass; passes {passes} s; median "
-        f"{dt_ds:.4f} s = {rate_ds:.0f} proteins/s")
-
-    alpha = np.frombuffer(host.encoder.PROT_ALPHA.encode(), np.uint8)
-    items = [(f"q{i}", alpha[offsets[i, :lengths[i]]].tobytes().decode())
-             for i in range(SAMPLE)]
-    eng.annotate_with_hits(items[:64], params, want_otu=True,
-                           want_code=False)             # warm-up
-    torch.cuda.synchronize()
-    t0 = time.time()
-    results, _h = eng.annotate_with_hits(items, params, want_otu=True,
-                                         want_code=False)
-    dt_eng = time.time() - t0
-    rate_eng = SAMPLE / dt_eng
-    log(f"phase 4: KmerEngine.annotate_with_hits: {SAMPLE} proteins in "
-        f"{dt_eng:.3f} s = {rate_eng:.0f} proteins/s")
-
-    # correctness on the sample: independent CPU references
-    s_off, s_len = offsets[:SAMPLE], lengths[:SAMPLE]
-    t0 = time.time()
-    hp_counts = host.native.HashPipeline(db).run(s_off, s_len,
-                                                 params.min_hits,
-                                                 params.max_gap)
-    n_ref, cs, ce, cc, cf, cw, _ = reference_calls(host, T, db, s_off, s_len,
-                                                   params)
-    log(f"phase 4: CPU references for {SAMPLE} proteins in "
-        f"{time.time() - t0:.1f} s")
-    ds_n, ds_cc, ds_cf, ds_cw = counts[0]
-    check(np.array_equal(hp_counts, n_ref),
-          "HashPipeline and the searchsorted reference disagree")
-    check(np.array_equal(ds_n, hp_counts),
-          "DeviceScorer call counts differ from HashPipeline")
-    check(int(ds_n.sum()) > 0, "no calls in the sample")
-    eng_n = np.array([len(r.calls) for r in results])
-    check(np.array_equal(eng_n, hp_counts),
-          "KmerEngine call counts differ from HashPipeline")
-    for s, r in enumerate(results):
-        want = [(int(cs[s, i]), int(ce[s, i]), int(cc[s, i]), int(cf[s, i]),
-                 int(np.float32(cw[s, i]).view(np.int32)))
-                for i in range(int(n_ref[s]))]
-        got = [(c.start, c.end, c.count, c.fI,
-                int(np.float32(c.weighted).view(np.int32)))
-               for c in r.calls]
-        check(got == want, f"KmerEngine calls differ for query {s}")
-        got_ds = [(int(ds_cc[s, i]), int(ds_cf[s, i]),
-                   int(np.float32(ds_cw[s, i]).view(np.int32)))
-                  for i in range(int(ds_n[s]))]
-        check(got_ds == [w[2:] for w in want],
-              f"DeviceScorer calls differ for query {s}")
-    log(f"phase 4: {SAMPLE}-protein sample matches the native CPU references "
-        f"({int(n_ref.sum())} calls)")
-
+    rate_ds, rate_eng = phase_query(host, T, ds, eng, db, offsets, lengths,
+                                    params, "query")
     rate_fam, _spent = phase_family(TF, eng, mapping, offsets, lengths,
                                     params, device)
     rate_reads, rate_orfs = phase_reads(host, eng, mapping, offsets, params)
+    before = probe_select.launches
+    rate_deep, rate_deep_eng = phase_query(host, T, ds_deep, eng_deep,
+                                           db_deep, d_off, d_len, params,
+                                           "deep")
+    sub_launches = probe_select.launches - before
+    del ds_deep, eng_deep
+    torch.cuda.empty_cache()
+    log(f"phase 4: gather_exp experiments ({', '.join(GX.EXPERIMENTS)})")
+    exp = GX.run(GX.EXPERIMENTS, device, deep=db_deep)
     peak = torch.cuda.max_memory_allocated()
     log(f"phase 4: peak device memory {peak} B ({peak / 2**30:.2f} GiB)")
 
     # -- phase 5: the main path went through every kernel
     launches = {name: fn.launches for name, fn in wrappers.items()}
-    log(f"phase 5: launches on the main path: {launches}")
+    log(f"phase 5: launches on the main path: {launches}; probe_select on "
+        f"the deep DB's sub_blocks path: {sub_launches}")
     for name, n in launches.items():
         check(n > 0, f"{name} was never launched on the main path")
+    check(sub_launches > 0, "probe_select never ran on the sub_blocks path")
     log(f"all phases passed in {time.time() - t_start:.1f} s; "
         f"DeviceScorer {rate_ds:.0f} proteins/s, KmerEngine {rate_eng:.0f} "
         f"proteins/s, family best-match {rate_fam:.0f} proteins/s, "
         f"/fq_lookup {rate_reads:.0f} reads/s ({rate_orfs:.0f} ORF "
-        f"proteins/s), peak {peak} B on {card}")
+        f"proteins/s), deep DB (sub_blocks) DeviceScorer {rate_deep:.0f} / "
+        f"KmerEngine {rate_deep_eng:.0f} proteins/s, deep_sub "
+        f"{exp['deep_sub'] * 1e3:.4f} ms / deep_bin "
+        f"{exp['deep_bin'] * 1e3:.4f} ms per {GX.N_IDX} windows, tier probes "
+        f"(ms, peak B) {tiers}, peak {peak} B on {card}")
 
     records = [dict(kernels[k], launches=launches[k]) for k in wrappers]
     print(json.dumps({"kernels": records}))

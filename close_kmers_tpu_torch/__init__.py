@@ -2,11 +2,14 @@
 
 The JAX package ``close_kmers_tpu`` stays the reference; this package
 runs the same protein ``/query`` path and family path (``/lookup``,
-``find_best_match``, ``/fq_lookup``, ``/add``) on an NVIDIA card: window
-encode, compaction and the row-local family sort in plain torch; the
-payload-wide and famwide probes, the run/gap/two-hit scoring state
-machine, the family row gather and the family grouping as hand-written
-CUDA kernels (``csrc/``), built with ``nvcc`` at first use.
+``find_best_match``, ``/fq_lookup``, ``/add``) on an NVIDIA card, on
+every probe tier of the JAX package, and the probe-gather experiments
+(``scripts/gather_exp.py``): window encode, compaction, the row-local
+family sort and the fused_wide / lo_wide / binary-search probes in plain
+torch; the payload-wide, sub-block and famwide probes, the run/gap/
+two-hit scoring state machine, the family row gather, the family
+grouping and the four probe-gather floors as hand-written CUDA kernels
+(``csrc/``), built with ``nvcc`` at first use.
 
 Nothing here imports ``jax``.  The port shares the JAX-free host modules
 of ``close_kmers_tpu`` (params, encoder, FASTA parsing, the signature and

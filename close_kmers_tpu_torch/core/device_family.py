@@ -46,16 +46,14 @@ from ..ops.row_gather import row_gather
 from ..utils.device import resolve_device
 from .device_score import CALL_CNT_BITS, CALL_FOLD_SHIFT, _scan_score, \
     compact_calls
-from .engine import FUSED_BUCKET_MAX, FUSED_LO_BITS, DeviceDB, \
-    encode_windows, probe_windows
+from .engine import FUSED_BUCKET_MAX, FUSED_LO_BITS, FUSED_SENTINEL, \
+    DeviceDB, encode_windows, probe_windows
 
 # D2H fold constants, copied from close_kmers_tpu/core/device_family.py:
 # rollup pack plane = (count << ROW_FOLD_SHIFT) | first, legal when both
 # fit ROW_FIT_BITS (count, first <= W*D+1).
 ROW_FOLD_SHIFT = 16
 ROW_FIT_BITS = 15
-# empty famwide slot: its low FUSED_LO_BITS never match a lo (engine.py:129)
-FUSED_SENTINEL = (1 << 30) | ((1 << FUSED_LO_BITS) - 1)
 
 
 @dataclasses.dataclass

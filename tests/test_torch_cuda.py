@@ -15,9 +15,11 @@ import torch
 from close_kmers_tpu_torch.core.api import KmerEngine
 from close_kmers_tpu_torch.core.device_family import DeviceFamilyScorer
 from close_kmers_tpu_torch.core.device_score import DeviceScorer
-from close_kmers_tpu_torch.core.engine import FastAnnotator
+from close_kmers_tpu_torch.core.engine import (DeviceDB, FastAnnotator,
+                                               encode_windows, probe_windows)
 from close_kmers_tpu_torch.host import EngineParams, SignatureDB, \
     family_db, params as P
+from close_kmers_tpu_torch.ops import gather_exp as gx
 from close_kmers_tpu_torch.ops.family_group import (PAD_KEY, family_group,
                                                     family_group_plain)
 from close_kmers_tpu_torch.ops.probe_select import (famwide_select,
@@ -267,3 +269,106 @@ def test_family_path_on_card_matches_cpu(cuda):
     after = (row_gather.launches, famwide_select.launches,
              family_group.launches)
     assert all(a > b for a, b in zip(after, before))
+
+
+@pytest.mark.parametrize("n,w,depth", [(2_490_000, 128, 16), (4099, 7, 1),
+                                       (20000, 33, 32), (1, 128, 4)])
+def test_dma_gather_kernel_matches_plain(cuda, n, w, depth):
+    rng = np.random.default_rng(n + w)
+    table = torch.from_numpy(
+        rng.integers(-(1 << 30), 1 << 30, size=(3001, w)).astype(np.int32))
+    idx = torch.from_numpy(rng.integers(0, 3001, size=n).astype(np.int32))
+    before = gx.dma_gather.launches
+    got = gx.dma_gather(table.to(cuda), idx.to(cuda), depth)
+    torch.cuda.synchronize()
+    assert gx.dma_gather.launches == before + 1
+    assert torch.equal(gx.dma_gather_plain(table, idx), got.cpu())
+    with pytest.raises(IndexError):
+        gx.dma_gather(table.to(cuda), torch.full((5,), 3001, dtype=torch.int32,
+                                                 device=cuda))
+
+
+@pytest.mark.parametrize("rows,w,chunk,big", [
+    (gx.VGATHER_TILE_ROWS, 128, 2048, True), (100, 37, 96, False)])
+def test_vgather_kernel_matches_plain(cuda, rows, w, chunk, big):
+    rng = np.random.default_rng(rows)
+    hi = (1 << 28) if big else 100
+    tile = torch.from_numpy(rng.integers(0, hi, size=(rows, w))
+                            .astype(np.int32))
+    idx = torch.from_numpy(rng.integers(0, rows, size=chunk * 300)
+                           .astype(np.int32))
+    before = gx.vgather.launches
+    got = gx.vgather(tile.to(cuda), idx.to(cuda), chunk)
+    torch.cuda.synchronize()
+    assert gx.vgather.launches == before + 1
+    assert torch.equal(gx.vgather_plain(tile, idx, chunk).view(torch.int32),
+                       got.cpu().view(torch.int32))
+
+
+def test_vgather_refuses_a_tile_past_shared_memory(cuda):
+    tile = torch.zeros((gx.VGATHER_TILE_ROWS + 64, 128), dtype=torch.int32,
+                       device=cuda)
+    idx = torch.zeros(64, dtype=torch.int32, device=cuda)
+    with pytest.raises(RuntimeError):
+        gx.vgather(tile, idx, 64)
+
+
+@pytest.mark.parametrize("n_rows,w,blk", [(3_198_976, 128, 2048),
+                                          (1001, 3, 77)])
+def test_hbmstream_kernel_matches_plain(cuda, n_rows, w, blk):
+    gen = torch.Generator(device=cuda).manual_seed(n_rows)
+    table = torch.randint(-(1 << 30), 1 << 30, (n_rows, w), generator=gen,
+                          device=cuda, dtype=torch.int32)
+    before = gx.hbmstream.launches
+    got = gx.hbmstream(table, blk)
+    torch.cuda.synchronize()
+    assert gx.hbmstream.launches == before + 1
+    want = gx.hbmstream_plain(table, blk)
+    assert torch.equal(want.view(torch.int32), got.view(torch.int32))
+
+
+@pytest.mark.parametrize("n_dmas,per_prog,rpd,w", [(32768, 256, 8, 128),
+                                                   (600, 6, 3, 5)])
+def test_dmaflush_kernel_matches_plain(cuda, n_dmas, per_prog, rpd, w):
+    rng = np.random.default_rng(n_dmas)
+    dst = torch.from_numpy(rng.permutation(n_dmas).astype(np.int32)
+                           .reshape(-1, per_prog))
+    buf = torch.from_numpy(rng.integers(0, 1 << 30, size=(per_prog * rpd, w))
+                           .astype(np.int32))
+    before = gx.dmaflush.launches
+    got = gx.dmaflush(dst.to(cuda), buf.to(cuda), rpd)
+    torch.cuda.synchronize()
+    assert gx.dmaflush.launches == before + 1
+    assert torch.equal(gx.dmaflush_plain(dst, buf, rpd), got.cpu())
+
+
+TIER_FLAGS = [dict(wide=False, sub=False, wide_lo=False, fused=False),
+              dict(wide=False, sub=False, fused=False),
+              dict(wide=False, sub=False),
+              dict(wide=False, sub=True, fused=False),
+              dict(wide=True, wide_payload=False, fused=False),
+              dict(wide=True, wide_payload=True)]
+
+
+def test_tiers_on_card_match_cpu(cuda):
+    """Each probe tier on the card equals the same tier on the CPU and the
+    payload-wide probe; the sub tier goes through probe_select."""
+    rng = np.random.default_rng(3)
+    db, prots = _db(rng)
+    offsets = np.full((64, 160), 20, np.uint8)
+    lengths = rng.integers(30, 150, size=64).astype(np.int32)
+    for b in range(64):
+        offsets[b, :lengths[b]] = np.resize(prots[b % len(prots)],
+                                            lengths[b])
+    o, ln = torch.from_numpy(offsets), torch.from_numpy(lengths)
+    base = probe_windows(DeviceDB.from_db(db, "cpu"), *encode_windows(o, ln))
+    assert int(base[0].sum()) > 1000
+    for kw in TIER_FLAGS:
+        dg = DeviceDB.from_db(db, cuda, **kw)
+        before = probe_select.launches
+        got = probe_windows(dg, *encode_windows(o.to(cuda), ln.to(cuda)))
+        torch.cuda.synchronize()
+        assert (probe_select.launches > before) == (
+            dg.tier in ("payload_wide", "sub_blocks")), dg.tier
+        for w_, g in zip(base, got):
+            assert torch.equal(bits(w_), bits(g)), dg.tier

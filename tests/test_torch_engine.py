@@ -1,7 +1,8 @@
 """Port parity for core/engine: window encode, the payload-wide DeviceDB,
-the state carry-over from the JAX DeviceDB, probe_compact, and the
-NotImplementedError of the probe tiers not ported yet.  Zero tolerance:
-every plane is integer or a bitcast f32."""
+the state carry-over from the JAX DeviceDB, probe_compact, and the tier
+each single-deep-bucket DB and the empty DB take (the six from_db
+variants are in test_torch_engine_tiers.py).  Zero tolerance: every
+plane is integer or a bitcast f32."""
 
 import numpy as np
 import jax.numpy as jnp
@@ -133,34 +134,85 @@ def _bucket_db(depth, lo_span, fi_max=50, n_extra=50, seed=0):
                        np.ones(n, np.float32))
 
 
+def _probe_both(jdb, tdb, offsets, lengths):
+    """(JAX probe_windows, port probe_windows) on one padded batch."""
+    want = E.probe_windows(jdb, *E.encode_windows(jnp.asarray(offsets),
+                                                  jnp.asarray(lengths)))
+    got = T.probe_windows(tdb, *T.encode_windows(torch.from_numpy(offsets),
+                                                 torch.from_numpy(lengths)))
+    for w, g in zip(want, got):
+        assert np.array_equal(bits(w), bits(g.numpy()))
+    return got
+
+
 @pytest.mark.parametrize("db_args,tier", [
     (dict(depth=40, lo_span=LO_CARD), "fused_wide"),
     (dict(depth=130, lo_span=LO_CARD), "sub_blocks"),
     (dict(depth=300, lo_span=512), "binary_search"),
 ])
 def test_unported_tiers_raise(db_args, tier):
+    """One bucket past each gate: the auto-ladder picks the tier the JAX
+    package picks, and the port builds and probes it as JAX does instead
+    of raising, hits included (windows spelled from the deep bucket's
+    keys)."""
     db = _bucket_db(**db_args)
     assert T.jax_tier(db) == tier
-    with pytest.raises(NotImplementedError, match=tier):
-        T.DeviceDB.from_db(db, "cpu")
+    jdb = E.DeviceDB.from_db(db)
+    tdb = T.DeviceDB.from_db(db, "cpu")
+    layouts = [f for f in ("fused_wide", "payload_wide", "sub_blocks",
+                           "lo_wide") if getattr(jdb, f) is not None]
+    assert tdb.tier == tier and layouts == ([] if tier == "binary_search"
+                                            else [tier])
+    pow20 = 20 ** np.arange(7, -1, -1, dtype=np.int64)
+    keys = db.keys[:db_args["depth"]].reshape(-1, 10)       # the deep bucket
+    offsets = ((keys[:, :, None] // pow20) % 20).reshape(len(keys), -1)
+    offsets = np.concatenate([offsets, np.full((len(keys), 9), 20)],
+                             axis=1).astype(np.uint8)
+    lengths = np.full(len(keys), offsets.shape[1] - 1, dtype=np.int32)
+    got = _probe_both(jdb, tdb, offsets, lengths)
+    assert int(got[0].sum()) == db_args["depth"]
 
 
 def test_empty_db_raises():
+    """test_engine.py's test_empty_db on the port: an empty DB builds the
+    binary-search tier instead of raising, and every window misses, as
+    in JAX."""
     db = SignatureDB(np.zeros(0, np.int64), np.zeros(0, np.int32),
                      np.zeros(0, np.int32), np.zeros(0, np.int32),
                      np.zeros(0, np.float32))
-    with pytest.raises(NotImplementedError, match="binary_search"):
-        T.DeviceDB.from_db(db, "cpu")
+    tdb = T.DeviceDB.from_db(db, "cpu")
+    assert T.jax_tier(db) == tdb.tier == "binary_search"
+    offsets = np.full((2, 24), 20, np.uint8)
+    offsets[0, :14] = [10, 8, 9, 17, 7, 11, 5, 8, 16, 0, 1, 2, 3, 4]
+    lengths = np.array([14, 0], np.int32)
+    got = _probe_both(E.DeviceDB.from_db(db), tdb, offsets, lengths)
+    assert not got[0].any() and (got[5] == 0).all()
 
 
-@pytest.mark.parametrize("tier", ["lo_wide", "fused_wide", "sub_blocks",
-                                  "binary_search"])
-def test_from_numpy_unported_tiers_raise(tier):
-    fields = dict(n=1, n_steps=1, wide_w=0, payload_wide=None)
-    if tier != "binary_search":
-        fields[tier] = np.zeros((4, 8), np.int32)
-    with pytest.raises(NotImplementedError, match=tier):
-        T.DeviceDB.from_numpy(fields, "cpu")
+TIER_FLAGS = {
+    "lo_wide": dict(wide=True, wide_payload=False, fused=False),
+    "fused_wide": dict(wide=False, sub=False),
+    "sub_blocks": dict(wide=False, sub=True, fused=False),
+    "binary_search": dict(wide=False, sub=False, wide_lo=False, fused=False),
+}
+
+
+@pytest.mark.parametrize("tier", list(TIER_FLAGS))
+def test_from_numpy_unported_tiers_raise(corpus, tier):
+    """The state carry-over of a JAX DeviceDB forced into each tier: it
+    builds and probes as JAX does instead of raising."""
+    db, seqs = corpus
+    jdb = E.DeviceDB.from_db(db, **TIER_FLAGS[tier])
+    fields = {f: (None if getattr(jdb, f) is None
+                  else np.asarray(getattr(jdb, f)))
+              for f in T.DeviceDB.ARRAYS}
+    fields.update(n=jdb.n, n_steps=jdb.n_steps, wide_w=jdb.wide_w,
+                  sub_w=jdb.sub_w, fused_w=jdb.fused_w)
+    tdb = T.DeviceDB.from_numpy(fields, "cpu")
+    assert tdb.tier == tier
+    offsets, lengths = T.FastAnnotator(db, "cpu").pad_batch(seqs)
+    got = _probe_both(jdb, tdb, offsets, lengths)
+    assert int(got[0].sum()) > 20
 
 
 def test_engines_need_an_explicit_device(corpus):

@@ -447,14 +447,13 @@ def test_rollup_cap_escalation_sticky(setup):
         assert np.array_equal(a, b)
 
 
-@pytest.mark.skip(reason="needs the sub-block probe tier, not ported yet "
-                         "(ROADMAP.md §1 item 1)")
 def test_device_rollup_sub_bucket_layout(setup):
     """The family rollup is identical when the engine probes via the
     deep-bucket sub-bucket layout (idx stays the global DB row)."""
     db, seqs, mapping, offsets, lengths = setup
     from close_kmers_tpu_torch.core.engine import DeviceDB
     ddb_sub = DeviceDB.from_db(db, "cpu", wide=False, fused=False)
+    assert ddb_sub.tier == "sub_blocks"
     a = TF.DeviceFamilyScorer(db, mapping, "cpu").rollup(offsets, lengths)
     b = TF.DeviceFamilyScorer(db, mapping, "cpu", ddb=ddb_sub).rollup(
         offsets, lengths)
