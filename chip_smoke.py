@@ -20,6 +20,15 @@ card, and exits 1 without one.
    (dma_gather: 2,490,000 ids from a [3.2M, 128] table; vgather:
    2,488,320 ids on a 448 x 128 tile; hbmstream: [3,198,976, 128] in
    blocks of 2048 rows; dmaflush: 32,768 copies of 8 x 128).
+   scan_score and row_gather are timed as the path calls them (the
+   wrapper, L2 flushed between calls) and by launch alone; row_gather
+   beside ``torch.index_select``, and with a bad id, which must raise
+   IndexError at its check and leave the context usable; scan_score
+   also at B in {1, 33, 4096, 4097} x W in {1, 63, 64, 65, 304}, fresh,
+   chained and state-only.  Each kernel's record carries its bound (the
+   bytes it must move over 3.35 TB/s, shared-memory bytes over the SMs'
+   bank rate for vgather) and, where one PyTorch call computes the same
+   function, that call's time.
    Tiers: the 20.5M-kmer DB of phase 4 built in each probe tier by
    ``DeviceDB.from_db`` flags (the six variants of
    tests/test_engine.py::test_probe_layout_parity), one table at a time;
@@ -79,6 +88,7 @@ import socket
 import sys
 import threading
 import time
+import types
 
 import numpy as np
 
@@ -203,6 +213,11 @@ def synth_reads(rng, src_off: np.ndarray, n_reads: int, read_len: int):
     return reads
 
 
+# The card's published memory rate (NVIDIA's data sheet, H100 SXM), the
+# denominator of every bound_ms below.
+HBM_BYTES_PER_S = 3.35e12
+
+
 def cuda_ms(fn, reps: int) -> float:
     """Mean milliseconds per call of ``fn`` on the card (CUDA events,
     after one warm-up call)."""
@@ -216,6 +231,55 @@ def cuda_ms(fn, reps: int) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def cuda_ms_cold(fn, reps: int, flush) -> float:
+    """Mean milliseconds of one call of ``fn`` with the L2 cache flushed
+    before it (a write of ``flush``, larger than the 50 MB L2, between
+    calls; CUDA events around each call alone, after one warm-up call)."""
+    import torch
+    fn()
+    times = []
+    for k in range(reps):
+        flush.fill_(k)
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        stop.record()
+        times.append((start, stop))
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in times) / reps
+
+
+def smem_bytes_per_s() -> float:
+    """The card's shared-memory rate: 32 banks x 4 B per clock on each
+    SM, at the SM's maximum clock (nvidia-smi clocks.max.sm)."""
+    import subprocess
+    import torch
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return sms * 128 * mhz * 1e6
+
+
+def bound(hbm_bytes: float, smem_bytes: float = 0.0,
+          smem_rate: float = 0.0) -> dict:
+    """bound_ms / bound_by of a kernel whose least time is set by the bytes
+    it must move: device-memory bytes (each input read once, each output
+    written once) over HBM_BYTES_PER_S, or shared-memory bytes over
+    ``smem_rate``, whichever takes longer.  Every kernel here does a few
+    integer operations per byte, far below the card's operation rates."""
+    ms = hbm_bytes / HBM_BYTES_PER_S * 1e3
+    if smem_bytes:
+        ms = max(ms, smem_bytes / smem_rate * 1e3)
+    return dict(bound_ms=ms, bound_by="bytes")
+
+
+def nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
 
 
 def max_abs_err(want, got) -> float:
@@ -234,14 +298,53 @@ def max_abs_err(want, got) -> float:
     return err
 
 
-def phase_kernels(T, ddb, off_d, len_d, params):
+SCAN_PARAMS = [(5, 0, 200, 0), (2, 0, 10, 0), (1, 2, 50, 0), (2, 0, 200, 1)]
+
+
+def scan_sweep(device) -> int:
+    """scan_score against its plain version at B in {1, 33, 4096, 4097}
+    and W in {1, 63, 64, 65, 304} (tile edges, no alignment): a fresh
+    state, a chained tile (init, pos0, final_flush) and the state alone
+    (want_emit=False).  Returns the number of cases held."""
+    import torch
+    from close_kmers_tpu_torch.ops.scan_score import (scan_score,
+                                                      scan_score_plain)
+    n = 0
+    for B in (1, 33, 4096, 4097):
+        for W in (1, 63, 64, 65, 304):
+            rng = np.random.default_rng(B * 1000 + W)
+            x = [torch.from_numpy(v).to(device) for v in (
+                rng.random((B, W)) < 0.3,
+                rng.integers(0, 5, size=(B, W)).astype(np.int32),
+                rng.integers(0, 300, size=(B, W)).astype(np.int32),
+                rng.uniform(0.1, 3, size=(B, W)).astype(np.float32))]
+            p = SCAN_PARAMS[(B + W) % len(SCAN_PARAMS)]
+            _, _, carry = scan_score_plain(*x, *p, want_emit=False)
+            pos0 = torch.from_numpy(
+                rng.integers(0, 500, size=B).astype(np.int32)).to(device)
+            flush = torch.from_numpy(rng.random(B) < 0.5).to(device)
+            for kw in (dict(), dict(init=carry, pos0=pos0, final_flush=flush),
+                       dict(init=carry, pos0=pos0, want_emit=False)):
+                want = scan_score_plain(*x, *p, **kw)
+                got = scan_score(*x, *p, **kw)
+                torch.cuda.synchronize()
+                planes = [] if want[0] is None else [want[0], *want[1]]
+                got_planes = [] if got[0] is None else [got[0], *got[1]]
+                check(len(planes) == len(got_planes),
+                      f"scan_score B={B} W={W}: emit planes differ")
+                max_abs_err(planes + list(want[2].values()),
+                            got_planes + list(got[2].values()))
+                n += 1
+    return n
+
+
+def phase_kernels(T, ddb, off_d, len_d, params, flush):
     """Phase 2: each kernel against its plain version at the shapes the
     main path gives it."""
     import torch
+    from close_kmers_tpu_torch.ops import scan_score as S
     from close_kmers_tpu_torch.ops.probe_select import (probe_select,
                                                         probe_select_plain)
-    from close_kmers_tpu_torch.ops.scan_score import (scan_score,
-                                                      scan_score_plain)
     hi, lo, valid = T.encode_windows(off_d, len_d)
     flat = (hi.reshape(-1), lo.reshape(-1), valid.reshape(-1))
     args = (*flat, ddb.payload_wide, ddb.wide_w, ddb.n)
@@ -253,53 +356,95 @@ def phase_kernels(T, ddb, off_d, len_d, params):
     check(int(got[0].sum()) > 0, "probe found no hits")
     ms_p = cuda_ms(lambda: probe_select(*args), 20)
     plain_ms_p = cuda_ms(lambda: probe_select_plain(*args), 5)
+    # windows in, six planes out; the table: each valid window's row
+    # (start + lo plane) once per distinct row, a hit's four payload ints
+    # once per distinct hit
+    ok = flat[2] & (flat[0] >= 0) & (flat[0] < ddb.payload_wide.shape[0])
+    rows = int(torch.unique(flat[0][ok]).numel())
+    hits = int(torch.unique(got[5][got[0]]).numel())
+    bound_p = bound(nbytes(*flat, *got) + rows * (1 + ddb.wide_w) * 4
+                    + hits * 16)
     log(f"probe_select: N={flat[0].numel()} windows, row_w="
         f"{ddb.payload_wide.shape[1]}, wd={ddb.wide_w}: kernel {ms_p:.4f} ms,"
-        f" plain {plain_ms_p:.4f} ms, max_abs_err {err_p}")
+        f" plain {plain_ms_p:.4f} ms, bound {bound_p['bound_ms']:.4f} ms "
+        f"({rows} rows, {hits} hits), max_abs_err {err_p}")
 
     sh = hi.shape
     found, fi, _oi, av, wt, _idx = (x.reshape(sh) for x in got)
     sargs = (found, fi, av, wt, params.min_hits, params.min_weighted_hits,
              params.max_gap, params.order_constraint)
-    got_s = scan_score(*sargs)
+    got_s = S.scan_score(*sargs)
     torch.cuda.synchronize()
-    want_s = scan_score_plain(*sargs)
+    want_s = S.scan_score_plain(*sargs)
     torch.cuda.synchronize()
     check(int(want_s[0].sum()) > 0, "scan emitted no calls")
     err_s = max_abs_err([want_s[0], *want_s[1], *want_s[2].values()],
                         [got_s[0], *got_s[1], *got_s[2].values()])
-    ms_s = cuda_ms(lambda: scan_score(*sargs), 20)
-    plain_ms_s = cuda_ms(lambda: scan_score_plain(*sargs), 3)
-    log(f"scan_score: B={sh[0]} W={sh[1]}: kernel {ms_s:.4f} ms, plain "
-        f"{plain_ms_s:.4f} ms, max_abs_err {err_s}")
+    # as the path calls it (the wrapper, L2 cold), and the launch alone
+    ms_s = cuda_ms_cold(lambda: S.scan_score(*sargs), 20, flush)
+    largs = (*S._prepare(found, fi, av, wt, None, None, True, None),
+             *sargs[4:])
+    launch_s = cuda_ms_cold(lambda: S._launch(*largs), 20, flush)
+    plain_ms_s = cuda_ms(lambda: S.scan_score_plain(*sargs), 3)
+    bound_s = bound(nbytes(found, fi, av, wt, got_s[0], *got_s[1],
+                           *got_s[2].values()))
+    n_sweep = scan_sweep(off_d.device)
+    log(f"scan_score: B={sh[0]} W={sh[1]}: wrapper {ms_s:.4f} ms, launch "
+        f"alone {launch_s:.4f} ms (L2 flushed), plain {plain_ms_s:.4f} ms, "
+        f"bound {bound_s['bound_ms']:.4f} ms, max_abs_err {err_s}; "
+        f"{n_sweep} sweep cases (B x W x fresh/chained/state-only) equal")
     return {
         "probe_select": dict(
             name="probe_select", route="cuda",
             source="close_kmers_tpu_torch/csrc/probe_select.cu",
             replaces="close_kmers_tpu/ops/pallas_select.py:54",
-            max_abs_err=err_p, ms=ms_p, plain_ms=plain_ms_p),
+            max_abs_err=err_p, ms=ms_p, plain_ms=plain_ms_p, **bound_p,
+            library_call=None, library_ms=None),
         "scan_score": dict(
             name="scan_score", route="cuda",
             source="close_kmers_tpu_torch/csrc/scan_score.cu",
             replaces="close_kmers_tpu/ops/pallas_scan.py:150",
-            max_abs_err=err_s, ms=ms_s, plain_ms=plain_ms_s),
+            max_abs_err=err_s, ms=ms_s, launch_ms=launch_s,
+            plain_ms=plain_ms_s, **bound_s, library_call=None,
+            library_ms=None),
     }
 
 
-def phase_family_kernels(T, TF, dfs, off_d, len_d):
+def row_gather_bad_id(table, idx) -> None:
+    """A bad id makes row_gather raise IndexError at its check, after the
+    caller's copy of the result, writes a zero row, and leaves the
+    context usable (a good gather right after equals the plain one)."""
+    import torch
+    from close_kmers_tpu_torch.ops.row_gather import (row_gather,
+                                                      row_gather_plain)
+    bad = idx.clone()
+    bad[7] = table.shape[0]
+    out, id_check = row_gather(table, bad)
+    host = out.cpu()
+    try:
+        id_check.raise_if_bad()
+        raised = False
+    except IndexError:
+        raised = True
+    check(raised, "row_gather did not raise on a bad id")
+    check(not bool(host[7].any()), "row_gather's bad row is not zero")
+    out, id_check = row_gather(table, idx)
+    torch.cuda.synchronize()
+    id_check.raise_if_bad()
+    max_abs_err([row_gather_plain(table, idx)], [out])
+
+
+def phase_family_kernels(T, TF, dfs, off_d, len_d, flush):
     """Phase 2, family half: row_gather, famwide_select and family_group
     against their plain versions at the family path's shapes (the batch's
     windows on the famwide rows, its matched-row ids on the family table,
     its sorted family planes)."""
     import torch
+    from close_kmers_tpu_torch.ops import row_gather as RG
     from close_kmers_tpu_torch.ops.family_group import (family_group,
                                                         family_group_plain)
     from close_kmers_tpu_torch.ops.probe_select import (famwide_select,
                                                         famwide_select_plain)
-    from close_kmers_tpu_torch.ops.row_gather import (row_gather,
-                                                      row_gather_plain)
-    from close_kmers_tpu_torch.ops.row_gather import \
-        _launch as row_gather_launch
     out = {}
     hi, lo, valid = T.encode_windows(off_d, len_d)
     B, W = hi.shape
@@ -313,32 +458,56 @@ def phase_family_kernels(T, TF, dfs, off_d, len_d):
     check(int((got[3] >= 0).sum()) > 0, "famwide probe found no families")
     ms = cuda_ms(lambda: famwide_select(*fargs), 20)
     plain_ms = cuda_ms(lambda: famwide_select_plain(*fargs), 5)
+    # windows in, four planes out; the table: the packed plane of each
+    # distinct valid row, a hit's wt and D families
+    ok = flat[2] & (flat[0] >= 0) & (flat[0] < dfs.famwide.shape[0])
+    rows = int(torch.unique(flat[0][ok]).numel())
+    hits = int(got[0].sum())
+    bnd = bound(nbytes(*flat, *got) + rows * dfs.fam_w * 4
+                + hits * (1 + dfs.fam_d) * 4)
     log(f"famwide_select: N={flat[0].numel()} windows, rows "
         f"{tuple(dfs.famwide.shape)}, fam_w={dfs.fam_w}, D={dfs.fam_d}: "
-        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, max_abs_err {err}")
+        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+        f"{bnd['bound_ms']:.4f} ms, max_abs_err {err}")
     out["famwide_select"] = dict(
         name="famwide_select", route="cuda",
         source="close_kmers_tpu_torch/csrc/probe_select.cu",
         replaces="close_kmers_tpu/core/device_family.py:373",
-        max_abs_err=err, ms=ms, plain_ms=plain_ms)
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, **bnd,
+        library_call=None, library_ms=None)
 
     idx = T.probe_windows(dfs.ddb, hi, lo, valid)[5].reshape(-1)
-    gargs = (dfs.fdb.fam, idx)
-    got = row_gather(*gargs)
+    table = dfs.fdb.fam
+    got, id_check = RG.row_gather(table, idx)
     torch.cuda.synchronize()
-    err = max_abs_err([row_gather_plain(*gargs)], [got])
-    ms = cuda_ms(lambda: row_gather(*gargs), 20)
-    launch_ms = cuda_ms(lambda: row_gather_launch(*gargs), 20)
-    plain_ms = cuda_ms(lambda: row_gather_plain(*gargs), 20)
+    id_check.raise_if_bad()
+    err = max_abs_err([RG.row_gather_plain(table, idx)], [got])
+    row_gather_bad_id(table, idx)
+    # as the path calls it (the wrapper with its queued flag copy, L2
+    # cold), the launch alone, and one PyTorch call of the same function
+    ms = cuda_ms_cold(lambda: RG.row_gather(table, idx), 20, flush)
+    o_buf = torch.empty_like(got)
+    f_buf = torch.empty(1, dtype=torch.int32, device=table.device)
+    launch_ms = cuda_ms_cold(lambda: RG._launch(table, idx, o_buf, f_buf),
+                             20, flush)
+    lib_ms = cuda_ms_cold(lambda: torch.index_select(table, 0, idx), 20,
+                          flush)
+    plain_ms = cuda_ms(lambda: RG.row_gather_plain(table, idx), 20)
+    rows = int(torch.unique(idx).numel())
+    bnd = bound(nbytes(idx, got) + rows * table.shape[1] * 4)
     log(f"row_gather: {idx.numel()} ids x {dfs.fdb.d} ints from "
-        f"{tuple(dfs.fdb.fam.shape)}: kernel {ms:.4f} ms with its id-range "
-        f"check ({launch_ms:.4f} ms launch alone), plain {plain_ms:.4f} ms,"
-        f" max_abs_err {err}")
+        f"{tuple(table.shape)} ({rows} distinct rows): checked wrapper "
+        f"{ms:.4f} ms, launch alone {launch_ms:.4f} ms, index_select "
+        f"{lib_ms:.4f} ms (L2 flushed), plain {plain_ms:.4f} ms, bound "
+        f"{bnd['bound_ms']:.4f} ms, max_abs_err {err}; a bad id raised "
+        f"IndexError at the check and the context stayed usable")
     out["row_gather"] = dict(
         name="row_gather", route="cuda",
         source="close_kmers_tpu_torch/csrc/row_gather.cu",
         replaces="close_kmers_tpu/ops/pallas_gather.py:65",
-        max_abs_err=err, ms=ms, plain_ms=plain_ms)
+        max_abs_err=err, ms=ms, launch_ms=launch_ms, plain_ms=plain_ms,
+        **bnd, library_call="torch.index_select(table, 0, idx)",
+        library_ms=lib_ms)
 
     skey, swt, spos = TF.sort_fams(got.reshape(B, W, -1))
     cap = skey.shape[1] + 1        # the global pack's per-row width
@@ -350,14 +519,17 @@ def phase_family_kernels(T, TF, dfs, off_d, len_d):
     check(int(got[0].sum()) > 0, "family_group found no groups")
     ms = cuda_ms(lambda: family_group(skey, swt, spos, cap), 20)
     plain_ms = cuda_ms(lambda: family_group_plain(skey, swt, spos, cap), 2)
+    bnd = bound(nbytes(skey, swt, spos, *got))
     log(f"family_group: B={B} rows x M={skey.shape[1]} sorted columns, cap "
         f"{cap}, {int(got[0].sum())} groups: kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, max_abs_err {err}")
+        f"{plain_ms:.4f} ms, bound {bnd['bound_ms']:.4f} ms, max_abs_err "
+        f"{err}")
     out["family_group"] = dict(
         name="family_group", route="cuda",
         source="close_kmers_tpu_torch/csrc/family_group.cu",
         replaces="close_kmers_tpu/core/device_family.py:233",
-        max_abs_err=err, ms=ms, plain_ms=plain_ms)
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, **bnd,
+        library_call=None, library_ms=None)
     return out
 
 
@@ -370,6 +542,7 @@ def phase_gather_kernels(device):
     from close_kmers_tpu_torch.ops import gather_exp as gx
     from close_kmers_tpu_torch.scripts import gather_exp as GX
     gen = torch.Generator(device=device).manual_seed(2)
+    smem_rate = smem_bytes_per_s()
 
     def randint(high, size):
         return torch.randint(0, high, size, generator=gen, device=device,
@@ -377,30 +550,40 @@ def phase_gather_kernels(device):
 
     out = {}
 
-    def hold(name, replaces, what, checked, launch, plain, plain_reps):
+    def hold(name, replaces, what, checked, launch, plain, plain_reps, bnd,
+             library=None, library_call=None):
         got = checked()
         torch.cuda.synchronize()
         err = max_abs_err([plain()], [got])
         check(bool((got != 0).any()), f"{name} gave only zeros")
         ms = cuda_ms(launch, 20)
         plain_ms = cuda_ms(plain, plain_reps)
+        lib_ms = cuda_ms(library, 20) if library is not None else None
         line = f"{name}: {what}: kernel {ms:.4f} ms"
         if checked is not launch:
             line += f" ({cuda_ms(checked, 10):.4f} ms with its id-range check)"
-        log(f"{line}, plain {plain_ms:.4f} ms, max_abs_err {err}")
+        if lib_ms is not None:
+            line += f", {library_call} {lib_ms:.4f} ms"
+        log(f"{line}, plain {plain_ms:.4f} ms, bound "
+            f"{bnd['bound_ms']:.4f} ms, max_abs_err {err}")
         out[name] = dict(name=name, route="cuda",
                          source="close_kmers_tpu_torch/csrc/gather_exp.cu",
                          replaces=replaces, max_abs_err=err, ms=ms,
-                         plain_ms=plain_ms)
+                         plain_ms=plain_ms, **bnd, library_call=library_call,
+                         library_ms=lib_ms)
         return ms
 
     tbl = randint(100, (GX.N_ROWS, 128))
     idx = randint(GX.N_ROWS, (GX.N_IDX,))
+    rows = int(torch.unique(idx).numel())
     hold("dma_gather", "scripts/gather_exp.py:109",
          f"{GX.N_IDX} ids x 128 int32 from {tuple(tbl.shape)}, depth 16",
          lambda: gx.dma_gather(tbl, idx),
          lambda: gx._launch_dma_gather(tbl, idx),
-         lambda: gx.dma_gather_plain(tbl, idx), 20)
+         lambda: gx.dma_gather_plain(tbl, idx), 20,
+         bound(idx.numel() * 4 + rows * 512 + idx.numel() * 512),
+         lambda: torch.index_select(tbl, 0, idx),
+         "torch.index_select(table, 0, idx)")
     del tbl, idx
 
     rows, chunk = gx.VGATHER_TILE_ROWS, GX.VGATHER_CHUNK
@@ -410,7 +593,9 @@ def phase_gather_kernels(device):
          f"{vidx.numel()} ids in chunks of {chunk} on a {rows} x 128 tile",
          lambda: gx.vgather(tile, vidx, chunk),
          lambda: gx._launch_vgather(tile, vidx, chunk),
-         lambda: gx.vgather_plain(tile, vidx, chunk), 10)
+         lambda: gx.vgather_plain(tile, vidx, chunk), 10,
+         bound(nbytes(vidx, tile) + vidx.numel() // chunk * 4,
+               vidx.numel() * 128 * 4, smem_rate))
     del tile, vidx
 
     nr = GX.N_ROWS // GX.HBM_BLK * GX.HBM_BLK
@@ -418,7 +603,10 @@ def phase_gather_kernels(device):
     fn = lambda: gx.hbmstream(tbl, GX.HBM_BLK)           # noqa: E731
     ms = hold("hbmstream", "scripts/gather_exp.py:196",
               f"{tuple(tbl.shape)} int32 in blocks of {GX.HBM_BLK} rows",
-              fn, fn, lambda: gx.hbmstream_plain(tbl, GX.HBM_BLK), 5)
+              fn, fn, lambda: gx.hbmstream_plain(tbl, GX.HBM_BLK), 5,
+              bound(nbytes(tbl) + nr // GX.HBM_BLK * 4),
+              lambda: tbl.sum(dtype=torch.int64),
+              "table.sum(dtype=torch.int64)")
     log(f"hbmstream: {nr * 128 * 4 / ms / 1e6:.0f} GB/s")
     del tbl
 
@@ -430,7 +618,8 @@ def phase_gather_kernels(device):
          f"{GX.FLUSH_DMAS} copies of {rpd} x 128 int32",
          lambda: gx.dmaflush(dst, buf, rpd),
          lambda: gx._launch_dmaflush(dst, buf, rpd),
-         lambda: gx.dmaflush_plain(dst, buf, rpd), 10)
+         lambda: gx.dmaflush_plain(dst, buf, rpd), 10,
+         bound(nbytes(dst, buf) + GX.FLUSH_DMAS * rpd * 128 * 4))
     return out
 
 
@@ -795,12 +984,13 @@ def phase_family(TF, eng, mapping, offsets, lengths, params, device):
             for name, sc in (("famwide", dfs), ("two-gather", tg)):
                 torch.cuda.synchronize()
                 t0 = time.time()
-                calls, call_cap, rows, _ = sc.score_family_packed(
+                calls, call_cap, rows, _, id_check = sc.score_family_packed(
                     c_off, c_len, params, ccap, -gps * BATCH,
                     slim_calls=True)
                 torch.cuda.synchronize()
                 spent[name] += time.time() - t0
                 packs[name] = (calls.cpu(), rows.cpu())
+                id_check.raise_if_bad()
             (fc, fr), (gc, gr) = packs["famwide"], packs["two-gather"]
             check(torch.equal(fc, gc) and torch.equal(fr, gr),
                   f"famwide and two-gather packs differ at chunk {a}")
@@ -888,7 +1078,10 @@ def main() -> int:
         return 1
     sys.path.insert(0, REPO)
     try:
-        from close_kmers_tpu_torch import host
+        from close_kmers_tpu_torch import params as P
+        from close_kmers_tpu_torch.db import family_db, signature_db
+        from close_kmers_tpu_torch.native import api as native
+        from close_kmers_tpu_torch.ops import encoder, translate
         from close_kmers_tpu_torch.core import device_family as TF
         from close_kmers_tpu_torch.core import engine as T
         from close_kmers_tpu_torch.core.api import KmerEngine
@@ -908,6 +1101,13 @@ def main() -> int:
               file=sys.stderr)
         return 1
     check(sys.modules.get("jax") is None, "jax was imported")
+    check(not any(m.split(".")[0] == "close_kmers_tpu" for m in sys.modules),
+          "the JAX package was imported")
+    # the port's host-side modules, in one namespace for the phases below
+    host = types.SimpleNamespace(
+        EngineParams=P.EngineParams, SignatureDB=signature_db.SignatureDB,
+        encoder=encoder, family_db=family_db, native=native, params=P,
+        translate=translate)
     device = resolve_device("cuda")
     kind = torch.cuda.get_device_name(0)
     card = gpu_name_and_power_limit()
@@ -970,8 +1170,10 @@ def main() -> int:
     # payload-wide probe
     off_d = torch.from_numpy(offsets[:BATCH]).to(device)
     len_d = torch.from_numpy(lengths[:BATCH]).to(device)
-    kernels = phase_kernels(T, ds.ddb, off_d, len_d, params)
-    kernels.update(phase_family_kernels(T, TF, dfs, off_d, len_d))
+    flush = torch.empty(64 << 20, dtype=torch.int32, device=device)
+    kernels = phase_kernels(T, ds.ddb, off_d, len_d, params, flush)
+    kernels.update(phase_family_kernels(T, TF, dfs, off_d, len_d, flush))
+    del flush
     phase_sub_select(T, ds_deep.ddb, torch.from_numpy(d_off[:BATCH]).to(
         device), torch.from_numpy(d_len[:BATCH]).to(device))
     kernels.update(phase_gather_kernels(device))

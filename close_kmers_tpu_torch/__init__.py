@@ -11,8 +11,11 @@ two-hit scoring state machine, the family row gather, the family
 grouping and the four probe-gather floors as hand-written CUDA kernels
 (``csrc/``), built with ``nvcc`` at first use.
 
-Nothing here imports ``jax``.  The port shares the JAX-free host modules
-of ``close_kmers_tpu`` (params, encoder, FASTA parsing, the signature and
-family DBs, the oracle and the native C++ scorer); ``host.py`` lists
-them.
+The package stands alone: nothing here imports ``jax`` or anything of
+``close_kmers_tpu``.  It keeps its own copies of the JAX package's host
+modules (``params``, ``core/family.py``, ``core/oracle.py``, the signature
+and family DBs under ``db/``, ``io/fasta.py``, the native C++ scorer under
+``native/``, ``ops/encoder.py``, ``ops/translate.py``,
+``utils/metrics.py``), each at its original's path and naming it in its
+first line.  The native library builds with g++ into ``.build/``.
 """

@@ -63,7 +63,7 @@ def load_server_context(data_dir: str, args=None, batch_size: int = 2048,
     """Load the signature DB onto ``device``, build the server context
     and its family universe (with the NR preload) from ``data_dir``."""
     from ..core.api import KmerEngine
-    from ..host import family_db, signature_db
+    from ..db import family_db, signature_db
     from ..server.http import ServerContext
 
     t0 = time.time()
@@ -145,7 +145,7 @@ class _EngineNrAdapter:
         self.engine = engine
 
     def hits_of_batch(self, seqs):
-        from ..host import oracle as O
+        from ..core import oracle as O
         fa = self.engine.fa
         h = fa.probe_compact(*fa.pad_batch(seqs))
         out = []

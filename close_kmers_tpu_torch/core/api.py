@@ -27,8 +27,10 @@ import weakref
 import numpy as np
 import torch
 
-from ..host import EngineParams, SignatureDB, family as F, native, \
-    oracle as O
+from ..db.signature_db import SignatureDB
+from ..native import api as native
+from ..params import EngineParams
+from . import family as F, oracle as O
 from .device_family import DeviceFamilyScorer
 from .device_score import DeviceScorer
 from .engine import FastAnnotator, finish_best_call
@@ -44,20 +46,6 @@ class AnnotationResult:
         self.hits = hits
         self.otu = otu
         self.best = best
-
-
-class BestCallReduction(F.BestCallReduction):
-    """``family.BestCallReduction`` whose scalar ``best_call`` runs the
-    port's ``finish_best_call``: the host class imports it from
-    ``close_kmers_tpu.core.engine``, which imports jax."""
-
-    # Copied from close_kmers_tpu/core/family.py::BestCallReduction.
-    def best_call(self, s: int) -> O.BestCall:
-        return finish_best_call(
-            int(self.nf[s]), self.ofi[s], self.ocnt[s], self.owt[s],
-            lambda i: (self.functions[i]
-                       if 0 <= i < len(self.functions)
-                       else "INVALID_OFFSET"))
 
 
 class _Readback:
@@ -233,12 +221,12 @@ class KmerEngine:
         ccap = 4
         fcap = None
         while True:
-            calls_dev, call_cap, rows_dev, capf = dfs.score_family_packed(
-                offsets, lengths, params, ccap, fcap)
-            dense = DeviceScorer.unpack_dense(calls_dev.cpu().numpy(), B,
-                                              call_cap)
-            roll = DeviceFamilyScorer.finish_rollup_rows(
-                rows_dev.cpu().numpy(), capf)
+            calls_dev, call_cap, rows_dev, capf, check = \
+                dfs.score_family_packed(offsets, lengths, params, ccap, fcap)
+            calls_np, rows_np = calls_dev.cpu().numpy(), rows_dev.cpu().numpy()
+            check.raise_if_bad()
+            dense = DeviceScorer.unpack_dense(calls_np, B, call_cap)
+            roll = DeviceFamilyScorer.finish_rollup_rows(rows_np, capf)
             if dense is None:
                 ccap *= 4
                 continue
@@ -358,13 +346,14 @@ class KmerEngine:
         def run(c_off, c_len):
             """One fused pass with the sticky caps; its two packs' copy
             to the host starts at once, as one transfer.  Returns (call
-            cap, group cap, length of the calls pack, the readback)."""
+            cap, group cap, length of the calls pack, the readback, the
+            row gather's IdCheck)."""
             gcap = dfs.bm_groups_per_seq * B
-            calls_dev, call_cap, rows_dev, _ = dfs.score_family_packed(
+            calls_dev, call_cap, rows_dev, _, check = dfs.score_family_packed(
                 c_off, c_len, params, dfs.bm_calls_per_seq, -gcap,
                 slim_calls=True)
             return (call_cap, gcap, calls_dev.shape[0],
-                    _Readback(torch.cat([calls_dev, rows_dev])))
+                    _Readback(torch.cat([calls_dev, rows_dev])), check)
 
         def dispatch(a):
             c_off = offsets[a:a + B]
@@ -379,9 +368,10 @@ class KmerEngine:
         outs = []
 
         def finish(chunk):
-            c_off, c_len, n, (call_cap, gcap, split, rb) = chunk
+            c_off, c_len, n, (call_cap, gcap, split, rb, check) = chunk
             while True:
                 joined = rb.result()
+                check.raise_if_bad()
                 calls_np, rows_np = joined[:split], joined[split:]
                 dense = unpack_calls(calls_np, B, call_cap)
                 roll = DeviceFamilyScorer.finish_rollup_global(
@@ -394,14 +384,14 @@ class KmerEngine:
                 if roll is None:
                     need = -(-int(rows_np[:B].sum()) // B)
                     dfs.bm_groups_per_seq = max(gcap // B * 4, need)
-                call_cap, gcap, split, rb = run(c_off, c_len)
+                call_cap, gcap, split, rb, check = run(c_off, c_len)
             n_calls, cc, cf, cw = dense
             nf, ofi, ocnt, owt = native.best_call_batch(
                 n_calls, None, None, cc, cf, cw)
             n_per, fam, counts, weights, first = roll
             total = int(np.asarray(n_per[:n]).sum())
-            reduction = BestCallReduction(nf[:n], ofi[:n], ocnt[:n],
-                                          owt[:n], self.db.functions)
+            reduction = F.BestCallReduction(nf[:n], ofi[:n], ocnt[:n],
+                                            owt[:n], self.db.functions)
             outs.append(F.find_best_family_matches_batch(
                 reduction, np.asarray(n_per[:n]), fam[:total],
                 counts[:total], weights[:total], first[:total],

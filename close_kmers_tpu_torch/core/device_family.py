@@ -39,10 +39,11 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..host import EngineParams, SignatureDB
+from ..db.signature_db import SignatureDB
+from ..params import EngineParams
 from ..ops.family_group import PAD_KEY, family_group
 from ..ops.probe_select import famwide_select
-from ..ops.row_gather import row_gather
+from ..ops.row_gather import IdCheck, row_gather
 from ..utils.device import resolve_device
 from .device_score import CALL_CNT_BITS, CALL_FOLD_SHIFT, _scan_score, \
     compact_calls
@@ -150,10 +151,12 @@ class DeviceFamilyDB:
 
 
 def _gather_fams(fam_tab, idx):
-    """[B, W] matched-row ids -> [B, W, D] family rows through the
-    ``row_gather`` kernel.  A miss's id is N, the table's all-pad row."""
+    """[B, W] matched-row ids -> ([B, W, D] family rows, the gather's
+    IdCheck) through the ``row_gather`` kernel.  A miss's id is N, the
+    table's all-pad row."""
     B, W = idx.shape
-    return row_gather(fam_tab, idx.reshape(-1).contiguous()).reshape(B, W, -1)
+    fams, check = row_gather(fam_tab, idx.reshape(-1).contiguous())
+    return fams.reshape(B, W, -1), check
 
 
 def sort_fams(fams):
@@ -238,13 +241,15 @@ def family_rollup(ddb: DeviceDB, fam_tab, offsets, lengths, cap_seq: int):
     """Probe + family rollup in the legacy flat layout
     (``_family_rollup_jit``): [B n_per_seq] ++ [B*c fam] ++ [B*c cnt] ++
     [B*c wt-bits] ++ [B*c first], c = min(cap_seq, W*D+1).  Returns
-    (buffer, c)."""
+    (buffer, c, the gather's IdCheck)."""
     hi, lo, valid = encode_windows(offsets, lengths)
     *_, idx = probe_windows(ddb, hi, lo, valid)
-    rows = rollup_from_fams(_gather_fams(fam_tab, idx), cap_seq)
+    fams, check = _gather_fams(fam_tab, idx)
+    rows = rollup_from_fams(fams, cap_seq)
     c = (rows.shape[1] - 1) // 4
     return torch.cat([rows[:, 0]] + [rows[:, 1 + j * c:1 + (j + 1) * c]
-                                     .reshape(-1) for j in range(4)]), c
+                                     .reshape(-1) for j in range(4)]), c, \
+        check
 
 
 def score_family(ddb: DeviceDB, fam_tab, offsets, lengths,
@@ -253,7 +258,9 @@ def score_family(ddb: DeviceDB, fam_tab, offsets, lengths,
                  fold_calls: bool = False):
     """The family-serving program (``_score_family_jit``): one probe
     feeding both the scoring scan (the :func:`compact_calls` buffer) and
-    the family rollup (:func:`rollup_from_fams`).  Returns (calls, rows).
+    the family rollup (:func:`rollup_from_fams`).  Returns (calls, rows,
+    check): ``check`` is the row gather's :class:`IdCheck`, to be raised
+    after the caller's copy of ``calls`` or ``rows`` to the host.
 
     ``famwide``: None for the two-gather path (payload-wide probe, then
     the family rows by matched row id), or (table, fam_w, fam_d) for the
@@ -274,15 +281,16 @@ def score_family(ddb: DeviceDB, fam_tab, offsets, lengths,
         found, p_fi, p_wt = (x.reshape(sh) for x in (found, p_fi, p_wt))
         p_av = torch.zeros_like(p_fi)
         fams = fams.reshape(*sh, fam_d)
+        check = IdCheck()
     else:
         found, p_fi, _oi, p_av, p_wt, idx = probe_windows(ddb, hi, lo, valid)
-        fams = _gather_fams(fam_tab, idx)
+        fams, check = _gather_fams(fam_tab, idx)
     emit, fields = _scan_score(found, p_fi, p_av, p_wt, params.min_hits,
                                params.min_weighted_hits, params.max_gap,
                                params.order_constraint)
     slim = (2 if fold_calls else 3) if slim_calls else 0
     return (compact_calls(emit, fields, call_cap, slim),
-            rollup_from_fams(fams, cap_seq, row_cap))
+            rollup_from_fams(fams, cap_seq, row_cap), check)
 
 
 class DeviceFamilyScorer:
@@ -351,8 +359,9 @@ class DeviceFamilyScorer:
     def rollup_packed(self, offsets: np.ndarray, lengths: np.ndarray,
                       fams_per_seq_cap: int | None = None):
         """Dispatches the probe + rollup and returns the packed device
-        buffer (legacy flat layout) and its per-row cap, not yet read
-        back.  Unpack with finish_rollup (None = cap overflow)."""
+        buffer (legacy flat layout), its per-row cap and the row gather's
+        IdCheck, not yet read back.  Unpack with finish_rollup (None =
+        cap overflow) after the check."""
         if fams_per_seq_cap is None:
             fams_per_seq_cap = self._default_cap
         return family_rollup(self.ddb, self.fdb.fam,
@@ -434,8 +443,9 @@ class DeviceFamilyScorer:
                             fams_per_seq_cap: int | None = None,
                             slim_calls: bool = False, row_cap: int = 0):
         """Fused calls + family rollup (one probe).  Returns (calls_dev,
-        call_cap, rows_dev, cap_seq) with both device buffers not yet
-        read back.  calls_dev parses with DeviceScorer.unpack_dense
+        call_cap, rows_dev, cap_seq, check) with both device buffers not
+        yet read back; ``check.raise_if_bad()`` goes after their copy to
+        the host.  calls_dev parses with DeviceScorer.unpack_dense
         (unpack_dense2/3 when slim_calls, per pack_flags), rows_dev with
         finish_rollup_rows (cap_seq >= 0; the returned cap_seq is the
         buffer's row width, min(cap, W*D+1)) or finish_rollup_global."""
@@ -446,14 +456,14 @@ class DeviceFamilyScorer:
         # scoring needs: take the two-gather path there
         use_fw = self.famwide is not None and not params.order_constraint
         fold_calls, _ = self.pack_flags(offsets.shape[1])
-        calls_out, rows = score_family(
+        calls_out, rows, check = score_family(
             self.ddb, self.fdb.fam, *self._upload(offsets, lengths), params,
             call_cap, fams_per_seq_cap, slim_calls, row_cap,
             (self.famwide, self.fam_w, self.fam_d) if use_fw else None,
             fold_calls and slim_calls)
         cap_seq = (rows.shape[1] - 1) // 4 if fams_per_seq_cap >= 0 \
             else fams_per_seq_cap
-        return calls_out, call_cap, rows, cap_seq
+        return calls_out, call_cap, rows, cap_seq, check
 
     def _rollup(self, offsets: np.ndarray, lengths: np.ndarray,
                 fams_per_seq_cap: int):
@@ -461,8 +471,11 @@ class DeviceFamilyScorer:
         concatenated in (sequence, family-id) order); ``first`` recovers
         the host path's first-hit order."""
         B = offsets.shape[0]
-        out, capf = self.rollup_packed(offsets, lengths, fams_per_seq_cap)
-        res = self.finish_rollup(out.cpu().numpy(), B, capf)
+        out, capf, check = self.rollup_packed(offsets, lengths,
+                                              fams_per_seq_cap)
+        out = out.cpu().numpy()
+        check.raise_if_bad()
+        res = self.finish_rollup(out, B, capf)
         if res is None:
             self._default_cap = max(self._default_cap, fams_per_seq_cap * 4)
             return self._rollup(offsets, lengths, fams_per_seq_cap * 4)

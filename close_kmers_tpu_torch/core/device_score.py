@@ -22,7 +22,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..host import EngineParams, params as P
+from .. import params as P
+from ..params import EngineParams
 from ..ops.scan_score import neutral_scan_state, scan_score  # noqa: F401
 from ..utils.device import resolve_device
 from .engine import DeviceDB, encode_windows, probe_windows, \

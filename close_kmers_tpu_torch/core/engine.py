@@ -46,7 +46,10 @@ import math
 import numpy as np
 import torch
 
-from ..host import SignatureDB, encoder, oracle as O, params
+from .. import params
+from ..db.signature_db import SignatureDB
+from ..ops import encoder
+from . import oracle as O
 from ..ops.probe_select import probe_select
 from ..utils.device import resolve_device
 

@@ -29,6 +29,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC"]
 
 _lib = None
+_fns: dict = {}
 
 
 def _sources() -> list[str]:
@@ -94,13 +95,16 @@ def build(force: bool = False, verbose: bool = False) -> str:
 def kernel(name: str, argtypes: list):
     """The C entry point ``name`` of the built library, with its
     ``argtypes`` declared (``c_void_p`` for every pointer and the
-    stream) and an int return code."""
+    stream) and an int return code; looked up once per name."""
     global _lib
-    if _lib is None:
-        _lib = ctypes.CDLL(build())
-    fn = getattr(_lib, name)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
+    fn = _fns.get(name)
+    if fn is None:
+        if _lib is None:
+            _lib = ctypes.CDLL(build())
+        fn = getattr(_lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _fns[name] = fn
     return fn
 
 

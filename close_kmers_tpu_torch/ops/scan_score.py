@@ -4,8 +4,10 @@ Port of ``close_kmers_tpu/ops/pallas_scan.py::scan_score_pallas`` with
 the chained-tile arguments of ``core/device_score.py::_scan_score_core``
 (``init``, ``pos0``, ``final_flush``, ``want_emit``).  On CUDA tensors
 :func:`scan_score` launches the hand-written kernel
-``csrc/scan_score.cu`` (one thread per sequence); on CPU tensors it runs
-:func:`scan_score_plain`, the batched masked-select loop of the
+``csrc/scan_score.cu`` (one thread per sequence, its inputs staged
+through shared memory ahead of it), which reads the [B, W] inputs and
+writes the [B, W+1] outputs in place, with no transposes; on CPU tensors
+it runs :func:`scan_score_plain`, the batched masked-select loop of the
 reference written in torch.
 
 Outputs keep the reference's layout: ``emit`` [B, W+1] bool and the call
@@ -19,7 +21,7 @@ import ctypes
 
 import torch
 
-from ..host import params
+from .. import params
 from . import _build
 
 K = params.K
@@ -186,10 +188,27 @@ def scan_score(found, fi, av, wt, min_hits, min_weighted_hits, max_gap,
                                 init, pos0, want_emit, final_flush)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
+    args = _prepare(found, fi, av, wt, init, pos0, want_emit, final_flush)
+    _launch(*args, min_hits, min_weighted_hits, max_gap, order_constraint)
+    out_i, out_f = args[-2:]
+    state = dict(zip(INT_FIELDS, out_i.unbind(0)))
+    state.update(zip(FLOAT_FIELDS, out_f.unbind(0)))
+    if not want_emit:
+        return None, None, state
+    emit, *fields = args[-8:-2]
+    return emit, fields, state
+
+
+def _prepare(found, fi, av, wt, init, pos0, want_emit, final_flush):
+    """The kernel's arguments on checked CUDA tensors: the [B, W] inputs
+    as they are (a copy only where one is not contiguous, or found's
+    bytes do not start on a 4-byte boundary), the stacked init state,
+    and the [B, W+1] outputs and the state allocated."""
     B, W = found.shape
-    # [W, B] inputs: neighbouring threads (sequences) read neighbouring
-    # addresses at every step
-    ins = [x.t().contiguous() for x in (found, fi, av, wt)]
+    dev = found.device
+    ins = [x.contiguous() for x in (found, fi, av, wt)]
+    if ins[0].data_ptr() % 4:    # the kernel copies found as 4-byte words
+        ins[0] = ins[0].clone()
     init_i = init_f = None
     if init is not None:
         init_i = torch.stack([init[k] for k in INT_FIELDS]).contiguous()
@@ -198,33 +217,38 @@ def scan_score(found, fi, av, wt, min_hits, min_weighted_hits, max_gap,
     final_flush = final_flush.contiguous() if final_flush is not None \
         else None
     outs = [None] * 6
-    if want_emit:
-        outs = [torch.empty((W + 1, B), dtype=dt, device=dev)
-                for dt in (torch.bool,) + (torch.int32,) * 4
-                + (torch.float32,)]
-    out_i = torch.empty((len(INT_FIELDS), B), dtype=torch.int32, device=dev)
-    out_f = torch.empty((len(FLOAT_FIELDS), B), dtype=torch.float32,
-                        device=dev)
+    if want_emit:     # two allocations: emit, and the five call planes
+        planes = torch.empty((5, B, W + 1), dtype=torch.int32, device=dev)
+        outs = [torch.empty((B, W + 1), dtype=torch.bool, device=dev),
+                *planes[:4], planes[4].view(torch.float32)]
+    state = torch.empty((len(INT_FIELDS) + len(FLOAT_FIELDS), B),
+                        dtype=torch.int32, device=dev)
+    out_i = state[:len(INT_FIELDS)]
+    out_f = state[len(INT_FIELDS):].view(torch.float32)
+    return (*ins, init_i, init_f, pos0, final_flush, bool(want_emit), *outs,
+            out_i, out_f)
+
+
+def _launch(found, fi, av, wt, init_i, init_f, pos0, final_flush, want_emit,
+            emit, c_start, c_end, c_cnt, c_fi, c_wt, out_i, out_f,
+            min_hits, min_weighted_hits, max_gap, order_constraint):
+    """The kernel launch alone, on :func:`_prepare`'s arguments."""
 
     def ptr(t):
         return None if t is None else t.data_ptr()
 
+    B, W = found.shape
+    dev = found.device
     fn = _build.kernel("ck_scan_score", _ARGTYPES)
     with torch.cuda.device(dev):
-        rc = fn(*(x.data_ptr() for x in ins), B, W, ptr(init_i),
+        rc = fn(ptr(found), ptr(fi), ptr(av), ptr(wt), B, W, ptr(init_i),
                 ptr(init_f), ptr(pos0), ptr(final_flush), int(min_hits),
                 int(min_weighted_hits), int(max_gap), int(order_constraint),
-                int(bool(want_emit)), *(ptr(o) for o in outs),
-                out_i.data_ptr(), out_f.data_ptr(),
+                int(want_emit), ptr(emit), ptr(c_start), ptr(c_end),
+                ptr(c_cnt), ptr(c_fi), ptr(c_wt), ptr(out_i), ptr(out_f),
                 torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "ck_scan_score")
     scan_score.launches += 1
-    state = {k: out_i[j] for j, k in enumerate(INT_FIELDS)}
-    state.update({k: out_f[j] for j, k in enumerate(FLOAT_FIELDS)})
-    if not want_emit:
-        return None, None, state
-    emit, *fields = (o.t().contiguous() for o in outs)
-    return emit, fields, state
 
 
 scan_score.launches = 0

@@ -36,8 +36,9 @@ import time
 import numpy as np
 import torch
 
+from .. import params
 from ..core.engine import DeviceDB, probe_windows
-from ..host import SignatureDB, params
+from ..db.signature_db import SignatureDB
 from ..ops import gather_exp as gx
 from ..utils.device import gpu_name_and_power_limit, resolve_device
 

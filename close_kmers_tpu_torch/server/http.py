@@ -34,9 +34,13 @@ import zlib
 
 import numpy as np
 
-from ..host import EngineParams, encoder, family as F, family_db, fasta, \
-    metrics, oracle as O, translate
+from ..core import family as F, oracle as O
 from ..core.api import KmerEngine
+from ..db import family_db
+from ..io import fasta
+from ..ops import encoder, translate
+from ..params import EngineParams
+from ..utils import metrics
 
 REQUEST_RE = re.compile(r"^([A-Z]+) ([^?#]*)(\?([^#]*))?(#(.*))? HTTP/(\d+\.\d+)")
 MAPPING_PATH_RE = re.compile(r"^/mapping/([^/]+)(/(add|matrix|lookup))$")

@@ -17,8 +17,10 @@ from close_kmers_tpu_torch.core.device_family import DeviceFamilyScorer
 from close_kmers_tpu_torch.core.device_score import DeviceScorer
 from close_kmers_tpu_torch.core.engine import (DeviceDB, FastAnnotator,
                                                encode_windows, probe_windows)
-from close_kmers_tpu_torch.host import EngineParams, SignatureDB, \
-    family_db, params as P
+from close_kmers_tpu_torch import params as P
+from close_kmers_tpu_torch.db import family_db
+from close_kmers_tpu_torch.db.signature_db import SignatureDB
+from close_kmers_tpu_torch.params import EngineParams
 from close_kmers_tpu_torch.ops import gather_exp as gx
 from close_kmers_tpu_torch.ops.family_group import (PAD_KEY, family_group,
                                                     family_group_plain)
@@ -110,6 +112,74 @@ def test_scan_kernel_matches_plain(cuda, p):
             assert torch.equal(bits(want[2][k]), bits(got[2][k])), k
 
 
+def _scan_inputs(rng, B, W):
+    return [torch.from_numpy(rng.random((B, W)) < 0.3),
+            torch.from_numpy(rng.integers(0, 5, size=(B, W)).astype(np.int32)),
+            torch.from_numpy(rng.integers(0, 300, size=(B, W))
+                             .astype(np.int32)),
+            torch.from_numpy(rng.uniform(0.1, 3, size=(B, W))
+                             .astype(np.float32))]
+
+
+def _assert_scan_equal(want, got):
+    assert (want[0] is None) == (got[0] is None)
+    if want[0] is not None:
+        assert torch.equal(want[0], got[0].cpu())
+        for w, g in zip(want[1], got[1]):
+            assert torch.equal(bits(w), bits(g))
+    for k in INT_FIELDS + FLOAT_FIELDS:
+        assert torch.equal(bits(want[2][k]), bits(got[2][k])), k
+
+
+@pytest.mark.parametrize("W", [1, 63, 64, 65, 304])
+@pytest.mark.parametrize("B", [1, 33, 4096, 4097])
+def test_scan_kernel_shapes_match_plain(cuda, B, W):
+    """Every B and W, tile edges included, in the [B, W] / [B, W+1]
+    layouts: fresh state, a chained tile (init, pos0, final_flush) and
+    the state alone (want_emit=False)."""
+    rng = np.random.default_rng(B * 1000 + W)
+    x = _scan_inputs(rng, B, W)
+    p = SCAN_PARAMS[(B + W) % len(SCAN_PARAMS)]
+    _, _, carry = scan_score_plain(*x, *p, want_emit=False)
+    pos0 = torch.from_numpy(rng.integers(0, 500, size=B).astype(np.int32))
+    flush = torch.from_numpy(rng.random(B) < 0.5)
+    on_card = {k: v.to(cuda) for k, v in carry.items()}
+    before = scan_score.launches
+    for kw, kw_card in (
+            (dict(), dict()),
+            (dict(init=carry, pos0=pos0, final_flush=flush),
+             dict(init=on_card, pos0=pos0.to(cuda),
+                  final_flush=flush.to(cuda))),
+            (dict(init=carry, pos0=pos0, want_emit=False),
+             dict(init=on_card, pos0=pos0.to(cuda), want_emit=False))):
+        want = scan_score_plain(*x, *p, **kw)
+        got = scan_score(*(t.to(cuda) for t in x), *p, **kw_card)
+        torch.cuda.synchronize()
+        _assert_scan_equal(want, got)
+        if want[0] is not None:
+            assert got[0].shape == (B, W + 1)
+            assert all(f.shape == (B, W + 1) for f in got[1])
+    assert scan_score.launches == before + 3
+
+
+def test_scan_kernel_takes_misaligned_and_strided_inputs(cuda):
+    """found starting off a 4-byte boundary (a view at storage offset 1)
+    and column slices of wider planes give the plain version's result."""
+    rng = np.random.default_rng(8)
+    B, W = 37, 71
+    x = _scan_inputs(rng, B, W + 3)
+    want = scan_score_plain(*(t[:, 2:2 + W] for t in x), *SCAN_PARAMS[0])
+    buf = torch.zeros(B * W + 1, dtype=torch.bool, device=cuda)
+    buf[1:] = x[0][:, 2:2 + W].reshape(-1).to(cuda)
+    found = buf[1:].view(B, W)
+    assert found.data_ptr() % 4 == 1
+    rest = [t.to(cuda)[:, 2:2 + W] for t in x[1:]]
+    got = scan_score(found, *rest, *SCAN_PARAMS[0])
+    torch.cuda.synchronize()
+    assert want[0].sum() > 0
+    _assert_scan_equal(want, got)
+
+
 def _db(rng, n_funcs=20, prot_len=120):
     prots = rng.integers(0, 20, size=(n_funcs, prot_len))
     keys, fis = [], []
@@ -160,20 +230,43 @@ def test_paths_on_card_match_cpu(cuda):
     assert scan_score.launches > before[1]
 
 
-@pytest.mark.parametrize("n,w", [(1, 1), (4099, 3), (20000, 33)])
+@pytest.mark.parametrize("n,w", [(1, 1), (4099, 3), (20000, 33),
+                                 (5000, 300), (1_250_000, 3)])
 def test_row_gather_kernel_matches_plain(cuda, n, w):
     rng = np.random.default_rng(n)
     table = torch.from_numpy(
         rng.integers(-1, 1 << 30, size=(3001, w)).astype(np.int32))
     idx = torch.from_numpy(rng.integers(0, 3001, size=n).astype(np.int32))
     before = row_gather.launches
-    got = row_gather(table.to(cuda), idx.to(cuda))
+    got, check = row_gather(table.to(cuda), idx.to(cuda))
     torch.cuda.synchronize()
+    check.raise_if_bad()
     assert row_gather.launches == before + 1
     assert torch.equal(row_gather_plain(table, idx), got.cpu())
+
+
+@pytest.mark.parametrize("bad_id", [3001, -1, 1 << 30])
+def test_row_gather_bad_id_raises_at_the_check(cuda, bad_id):
+    """A bad id writes a zero row and raises IndexError at the check,
+    after the result's copy; the context stays usable afterwards."""
+    rng = np.random.default_rng(2)
+    table = torch.from_numpy(
+        rng.integers(1, 1 << 30, size=(3001, 3)).astype(np.int32)).to(cuda)
+    idx = torch.from_numpy(rng.integers(0, 3001, size=5000)
+                           .astype(np.int32)).to(cuda)
+    idx[1234] = bad_id
+    out, check = row_gather(table, idx)
+    host = out.cpu()                        # the caller's own copy
     with pytest.raises(IndexError):
-        row_gather(table.to(cuda), torch.full((5,), 3001, dtype=torch.int32,
-                                              device=cuda))
+        check.raise_if_bad()
+    assert not host[1234].any() and host[1233].all()
+    good = idx.clone()
+    good[1234] = 7
+    out, check = row_gather(table, good)
+    torch.cuda.synchronize()
+    check.raise_if_bad()
+    assert torch.equal(out.cpu(), row_gather_plain(table.cpu(), good.cpu()))
+    assert int((table + 1).sum().item()) != 0    # the context still works
 
 
 @pytest.mark.parametrize("wd,d", [(1, 1), (22, 3), (40, 2)])

@@ -15,6 +15,7 @@ from close_kmers_tpu_torch.core import device_score as TD
 from close_kmers_tpu_torch.core.engine import FastAnnotator
 
 from test_engine import random_db, random_seqs
+from test_torch_host import as_jax_db, as_port_db
 
 PARAMS = [
     EngineParams(),
@@ -28,10 +29,10 @@ PARAMS = [
 @pytest.fixture(scope="module")
 def corpus():
     rng = np.random.default_rng(77)
-    db = random_db(rng)
+    db = as_port_db(random_db(rng))
     seqs = random_seqs(rng, db, n=48)
     offsets, lengths = FastAnnotator(db, "cpu").pad_batch(seqs)
-    return db, offsets, lengths, JD.DeviceScorer(db), \
+    return db, offsets, lengths, JD.DeviceScorer(as_jax_db(db)), \
         TD.DeviceScorer(db, "cpu")
 
 

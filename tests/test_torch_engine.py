@@ -10,11 +10,12 @@ import pytest
 import torch
 
 from close_kmers_tpu.core import engine as E
-from close_kmers_tpu.db.signature_db import SignatureDB
-from close_kmers_tpu.params import LO_CARD
 from close_kmers_tpu_torch.core import engine as T
+from close_kmers_tpu_torch.db.signature_db import SignatureDB
+from close_kmers_tpu_torch.params import LO_CARD
 
 from test_engine import random_db, random_seqs
+from test_torch_host import as_jax_db, as_port_db
 
 
 @pytest.fixture(scope="module")
@@ -22,7 +23,7 @@ def corpus():
     rng = np.random.default_rng(5)
     db = random_db(rng)
     seqs = random_seqs(rng, db, n=24)
-    return db, seqs
+    return as_port_db(db), seqs
 
 
 def bits(x):
@@ -50,7 +51,7 @@ def test_encode_windows_matches_jax(L):
 
 def test_payload_wide_table_matches_jax(corpus):
     db, _ = corpus
-    want = E.DeviceDB.from_db(db)
+    want = E.DeviceDB.from_db(as_jax_db(db))
     got = T.DeviceDB.from_db(db, "cpu")
     assert np.array_equal(np.asarray(want.payload_wide),
                           got.payload_wide.numpy())
@@ -62,7 +63,7 @@ def test_from_numpy_gives_identical_probes(corpus):
     """The state carry-over: a port DeviceDB built from the JAX DeviceDB's
     arrays probes exactly as the JAX one does."""
     db, seqs = corpus
-    jdb = E.DeviceDB.from_db(db)
+    jdb = E.DeviceDB.from_db(as_jax_db(db))
     fields = {f: (None if getattr(jdb, f) is None
                   else np.asarray(getattr(jdb, f)))
               for f in ("payload_wide", "lo_wide", "fused_wide",
@@ -91,7 +92,7 @@ def test_from_numpy_gives_identical_probes(corpus):
 def test_probe_compact_matches_jax(corpus, rows_only, want_code, want_oi,
                                    want_avg):
     db, seqs = corpus
-    jfa = E.FastAnnotator(db)
+    jfa = E.FastAnnotator(as_jax_db(db))
     tfa = T.FastAnnotator(db, "cpu")
     offsets, lengths = tfa.pad_batch(seqs)
     jo, jl = jfa.pad_batch(seqs)
@@ -110,7 +111,7 @@ def test_probe_compact_cap_overflow_retry(corpus):
     """A 1-hit-per-sequence cap overflows and retries with a bigger one;
     the result equals JAX's, which takes the same retry."""
     db, seqs = corpus
-    jfa = E.FastAnnotator(db)
+    jfa = E.FastAnnotator(as_jax_db(db))
     tfa = T.FastAnnotator(db, "cpu")
     offsets, lengths = tfa.pad_batch(seqs)
     want = jfa.probe_compact(offsets, lengths, hits_per_seq_cap=1)
@@ -157,7 +158,7 @@ def test_unported_tiers_raise(db_args, tier):
     keys)."""
     db = _bucket_db(**db_args)
     assert T.jax_tier(db) == tier
-    jdb = E.DeviceDB.from_db(db)
+    jdb = E.DeviceDB.from_db(as_jax_db(db))
     tdb = T.DeviceDB.from_db(db, "cpu")
     layouts = [f for f in ("fused_wide", "payload_wide", "sub_blocks",
                            "lo_wide") if getattr(jdb, f) is not None]
@@ -185,7 +186,8 @@ def test_empty_db_raises():
     offsets = np.full((2, 24), 20, np.uint8)
     offsets[0, :14] = [10, 8, 9, 17, 7, 11, 5, 8, 16, 0, 1, 2, 3, 4]
     lengths = np.array([14, 0], np.int32)
-    got = _probe_both(E.DeviceDB.from_db(db), tdb, offsets, lengths)
+    got = _probe_both(E.DeviceDB.from_db(as_jax_db(db)), tdb, offsets,
+                      lengths)
     assert not got[0].any() and (got[5] == 0).all()
 
 
@@ -202,7 +204,7 @@ def test_from_numpy_unported_tiers_raise(corpus, tier):
     """The state carry-over of a JAX DeviceDB forced into each tier: it
     builds and probes as JAX does instead of raising."""
     db, seqs = corpus
-    jdb = E.DeviceDB.from_db(db, **TIER_FLAGS[tier])
+    jdb = E.DeviceDB.from_db(as_jax_db(db), **TIER_FLAGS[tier])
     fields = {f: (None if getattr(jdb, f) is None
                   else np.asarray(getattr(jdb, f)))
               for f in T.DeviceDB.ARRAYS}

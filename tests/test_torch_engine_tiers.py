@@ -12,13 +12,14 @@ import torch
 
 from close_kmers_tpu.core import engine as E
 from close_kmers_tpu.core.device_score import DeviceScorer as JaxScorer
-from close_kmers_tpu.db.signature_db import SignatureDB
-from close_kmers_tpu.params import LO_CARD, EngineParams
 from close_kmers_tpu_torch.core import engine as T
+from close_kmers_tpu_torch.db.signature_db import SignatureDB
+from close_kmers_tpu_torch.params import LO_CARD, EngineParams
 from close_kmers_tpu_torch.core.device_score import DeviceScorer
 from close_kmers_tpu_torch.ops.probe_select import probe_select
 
 from test_engine import random_db, random_seqs
+from test_torch_host import as_jax_db, as_port_db
 
 # tests/test_engine.py::test_probe_layout_parity's six variants
 VARIANTS = {
@@ -53,8 +54,9 @@ def spell(rng, db, B, L, n_kmers):
 def shallow():
     """tests/test_engine.py's setup corpus (seed 42)."""
     rng = np.random.default_rng(42)
-    db = random_db(rng)
-    offsets, lengths = E.FastAnnotator(db).pad_batch(random_seqs(rng, db))
+    db = as_port_db(random_db(rng))
+    offsets, lengths = E.FastAnnotator(as_jax_db(db)).pad_batch(
+        random_seqs(rng, db))
     return db, offsets, lengths
 
 
@@ -116,7 +118,7 @@ def assert_probes_equal(jd, td, offsets, lengths):
 @pytest.mark.parametrize("name", list(VARIANTS))
 def test_tables_match_jax(shallow, name):
     db, _, _ = shallow
-    jd = E.DeviceDB.from_db(db, **VARIANTS[name])
+    jd = E.DeviceDB.from_db(as_jax_db(db), **VARIANTS[name])
     td = T.DeviceDB.from_db(db, "cpu", **VARIANTS[name])
     assert td.tier == name.replace("scale_", "")
     assert_tables_equal(jd, td)
@@ -125,7 +127,7 @@ def test_tables_match_jax(shallow, name):
 @pytest.mark.parametrize("name", list(VARIANTS))
 def test_probe_matches_jax(shallow, name):
     db, offsets, lengths = shallow
-    jd = E.DeviceDB.from_db(db, **VARIANTS[name])
+    jd = E.DeviceDB.from_db(as_jax_db(db), **VARIANTS[name])
     td = T.DeviceDB.from_db(db, "cpu", **VARIANTS[name])
     got = assert_probes_equal(jd, td, offsets, lengths)
     assert int(got[0].sum()) > 1000
@@ -136,7 +138,7 @@ def test_from_numpy_carries_each_tier(shallow, name):
     """The state carry-over: a port DeviceDB built from a JAX DeviceDB's
     arrays, in every tier, probes as the JAX one does."""
     db, offsets, lengths = shallow
-    jd = E.DeviceDB.from_db(db, **VARIANTS[name])
+    jd = E.DeviceDB.from_db(as_jax_db(db), **VARIANTS[name])
     td = T.DeviceDB.from_numpy(jax_fields(jd), "cpu")
     assert td.tier == name.replace("scale_", "")
     assert_tables_equal(jd, td)
@@ -152,7 +154,7 @@ def test_deep_db_sub_and_binary_search_match_jax(deep):
     outs = []
     for kw, tier in ((dict(), "sub_blocks"), (dict(sub=False),
                                               "binary_search")):
-        jd = E.DeviceDB.from_db(db, **kw)
+        jd = E.DeviceDB.from_db(as_jax_db(db), **kw)
         td = T.DeviceDB.from_db(db, "cpu", **kw)
         assert td.tier == tier
         assert_tables_equal(jd, td)
@@ -207,7 +209,7 @@ def test_auto_ladder_picks_jax_tier(shallow, deep, which, tier):
     db = {"shallow": lambda: shallow[0], "deep11": lambda: deep[0],
           "deep17": _deep17,
           "empty": lambda: SignatureDB.from_entries([])}[which]()
-    jd = E.DeviceDB.from_db(db)
+    jd = E.DeviceDB.from_db(as_jax_db(db))
     td = T.DeviceDB.from_db(db, "cpu")
     assert T.jax_tier(db) == td.tier == tier
     assert_tables_equal(jd, td)
@@ -216,7 +218,7 @@ def test_auto_ladder_picks_jax_tier(shallow, deep, which, tier):
 @pytest.mark.parametrize("rows_only", [False, True])
 def test_probe_compact_on_sub_tier(deep, rows_only):
     db, offsets, lengths = deep
-    jfa, tfa = E.FastAnnotator(db), T.FastAnnotator(db, "cpu")
+    jfa, tfa = E.FastAnnotator(as_jax_db(db)), T.FastAnnotator(db, "cpu")
     assert tfa.ddb.tier == "sub_blocks" and jfa.ddb.sub_blocks is not None
     want = jfa.probe_compact(offsets, lengths, rows_only=rows_only)
     got = tfa.probe_compact(offsets, lengths, rows_only=rows_only)
@@ -228,7 +230,7 @@ def test_probe_compact_on_sub_tier(deep, rows_only):
 @pytest.mark.parametrize("slim", [0, 2, 3])
 def test_device_scorer_on_sub_tier(deep, slim):
     db, offsets, lengths = deep
-    js, ts = JaxScorer(db), DeviceScorer(db, "cpu")
+    js, ts = JaxScorer(as_jax_db(db)), DeviceScorer(db, "cpu")
     assert ts.ddb.tier == "sub_blocks"
     want, wcap = js.score_batch_packed(offsets, lengths, EngineParams(),
                                        calls_per_seq_cap=4, slim=slim)

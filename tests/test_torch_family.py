@@ -19,7 +19,6 @@ import pytest
 import torch
 
 from close_kmers_tpu.core import device_family as JF
-from close_kmers_tpu.core import family as F
 from close_kmers_tpu.core.api import KmerEngine as JaxEngine
 from close_kmers_tpu.core.device_score import DeviceScorer as JaxScorer
 from close_kmers_tpu.core.engine import DeviceDB as JaxDeviceDB
@@ -27,18 +26,20 @@ from close_kmers_tpu.core.engine import FastAnnotator as JaxAnnotator
 from close_kmers_tpu.core.engine import _pad_flat_probes, _unpad_sel
 from close_kmers_tpu.core.engine import encode_windows as jax_encode
 from close_kmers_tpu.core.engine import probe_windows as jax_probe
-from close_kmers_tpu.db.family_db import FamilyData, KmerFamilyMapping
 from close_kmers_tpu.ops.pallas_gather import CHUNK, pallas_row_gather
-from close_kmers_tpu.params import EngineParams
+from close_kmers_tpu_torch.core import family as F
+from close_kmers_tpu_torch.db.family_db import FamilyData, KmerFamilyMapping
+from close_kmers_tpu_torch.params import EngineParams
 from close_kmers_tpu_torch.core import api as TA
 from close_kmers_tpu_torch.core import device_family as TF
 from close_kmers_tpu_torch.core.api import KmerEngine
 from close_kmers_tpu_torch.core.engine import FastAnnotator
 from close_kmers_tpu_torch.ops.family_group import family_group
 from close_kmers_tpu_torch.ops.probe_select import famwide_select
-from close_kmers_tpu_torch.ops.row_gather import row_gather
+from close_kmers_tpu_torch.ops.row_gather import IdCheck, row_gather
 
 from test_engine import random_db, random_seqs
+from test_torch_host import as_jax_db, as_jax_mapping, as_port_db
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 GENUS = 83333
@@ -61,13 +62,21 @@ def make_mapping(rng, db, n_fams=40):
 @pytest.fixture(scope="module")
 def setup():
     """The JAX test's DB and mapping (tests/test_device_family.py), with
-    family metadata whose functions partly match the DB's."""
+    family metadata whose functions partly match the DB's, as the port's
+    SignatureDB and KmerFamilyMapping."""
     rng = np.random.default_rng(55)
-    db = random_db(rng)
+    db = as_port_db(random_db(rng))
     seqs = random_seqs(rng, db, n=24)
     mapping = make_mapping(rng, db)
     offsets, lengths = FastAnnotator(db, "cpu").pad_batch(seqs)
     return db, seqs, mapping, offsets, lengths
+
+
+@pytest.fixture(scope="module")
+def jax_side(setup):
+    """The JAX package's DB and mapping over the same numpy arrays."""
+    db, _, mapping, _, _ = setup
+    return as_jax_db(db), as_jax_mapping(mapping)
 
 
 def bits(x):
@@ -91,7 +100,7 @@ def test_row_gather_matches_pallas_interpret(w):
     table = rng.integers(-1, 1 << 20, size=(700, w), dtype=np.int32)
     idx = rng.integers(0, 700, size=2 * CHUNK).astype(np.int32)
     want = np.asarray(pallas_row_gather(table, idx, interpret=True))
-    got = row_gather(torch.from_numpy(table), torch.from_numpy(idx))
+    got, _ = row_gather(torch.from_numpy(table), torch.from_numpy(idx))
     assert np.array_equal(want, got.numpy())
 
 
@@ -100,7 +109,7 @@ def test_row_gather_any_length(n):
     rng = np.random.default_rng(n)
     table = rng.integers(-1, 99, size=(50, 3), dtype=np.int32)
     idx = rng.integers(0, 50, size=n).astype(np.int32)
-    got = row_gather(torch.from_numpy(table), torch.from_numpy(idx))
+    got, _ = row_gather(torch.from_numpy(table), torch.from_numpy(idx))
     assert got.shape == (n, 3)
     assert np.array_equal(got.numpy(), table[idx])
 
@@ -119,6 +128,28 @@ def test_row_gather_rejects_bad_inputs(bad, exc):
     args.update(bad)
     with pytest.raises(exc):
         row_gather(**args)
+
+
+@pytest.mark.parametrize("flag", [0, 1])
+def test_id_check_reads_the_flag_after_the_wait(flag):
+    """IdCheck waits on its event, then raises only for a set flag; the
+    CPU path's check (the wrapper raised already) holds nothing."""
+    waited = []
+
+    class Event:
+        def synchronize(self):
+            waited.append(True)
+
+    check = IdCheck(torch.tensor([flag], dtype=torch.int32), Event(), 9)
+    if flag:
+        with pytest.raises(IndexError, match="9 rows"):
+            check.raise_if_bad()
+    else:
+        check.raise_if_bad()
+    assert waited == [True]
+    _, cpu_check = row_gather(torch.zeros((5, 3), dtype=torch.int32),
+                              torch.tensor([4], dtype=torch.int32))
+    cpu_check.raise_if_bad()
 
 
 def jax_folded_probe(famwide, fam_w, fam_d, hi, lo, valid):
@@ -148,9 +179,9 @@ def jax_folded_probe(famwide, fam_w, fam_d, hi, lo, valid):
     return [np.asarray(x) for x in (found, fi, wt, fams)]
 
 
-def test_famwide_select_matches_jax_folded_branch(setup):
+def test_famwide_select_matches_jax_folded_branch(setup, jax_side):
     db, seqs, mapping, offsets, lengths = setup
-    tab, W, D = JF.DeviceFamilyDB.famwide_from_mapping(db, mapping,
+    tab, W, D = JF.DeviceFamilyDB.famwide_from_mapping(*jax_side,
                                                        force=True)
     ttab, tW, tD = TF.DeviceFamilyDB.famwide_from_mapping(db, mapping, "cpu",
                                                           force=True)
@@ -213,16 +244,16 @@ def test_cpu_tensors_launch_no_kernel(setup):
 # -- rollup_from_fams against JAX ------------------------------------------
 
 @pytest.fixture(scope="module")
-def real_fams(setup):
+def real_fams(setup, jax_side):
     """[B, W, D] family rows of the setup batch, gathered by JAX."""
     db, seqs, mapping, offsets, lengths = setup
-    ddb = JaxDeviceDB.from_db(db)
-    fdb = JF.DeviceFamilyDB.from_mapping(db, mapping)
+    ddb = JaxDeviceDB.from_db(jax_side[0])
+    fdb = JF.DeviceFamilyDB.from_mapping(*jax_side)
     hi, lo, valid = jax_encode(jnp.asarray(offsets), jnp.asarray(lengths))
     *_, idx = jax_probe(ddb, hi, lo, valid)
     fams = np.asarray(JF._gather_fams(fdb.fam, idx))
-    tf = TF._gather_fams(torch.from_numpy(np.asarray(fdb.fam)),
-                         torch.from_numpy(np.asarray(idx)))
+    tf, _ = TF._gather_fams(torch.from_numpy(np.asarray(fdb.fam)),
+                            torch.from_numpy(np.asarray(idx)))
     assert np.array_equal(fams, tf.numpy())
     return fams
 
@@ -300,9 +331,9 @@ def test_rollup_weights_are_host_constants():
 # -- DeviceFamilyScorer against JAX ----------------------------------------
 
 @pytest.fixture(scope="module")
-def scorers(setup):
+def scorers(setup, jax_side):
     db, seqs, mapping, offsets, lengths = setup
-    return {fw: (JF.DeviceFamilyScorer(db, mapping, famwide=fw),
+    return {fw: (JF.DeviceFamilyScorer(*jax_side, famwide=fw),
                  TF.DeviceFamilyScorer(db, mapping, "cpu", famwide=fw))
             for fw in (True, False)}
 
@@ -503,6 +534,11 @@ def test_famwide_path_identical(setup, scorers):
 
 # -- KmerEngine family methods against the JAX engine ----------------------
 
+def fields(matches):
+    """BestMatch objects of either package as comparable field dicts."""
+    return [vars(m) for m in matches]
+
+
 def call_key(c):
     return (c.start, c.end, c.count, c.fI, bits(np.float32(c.weighted)))
 
@@ -513,23 +549,24 @@ def score_items(d):
 
 
 @pytest.fixture(scope="module")
-def engines(setup):
+def engines(setup, jax_side):
     """A JAX engine and a port engine, both forced onto the device family
-    path, and a port engine on the host path; one shared mapping."""
+    path, and a port engine on the host path; the JAX engine runs on the
+    JAX twins of the DB and the mapping."""
     db, seqs, mapping, offsets, lengths = setup
     items = [(f"q{i}", s) for i, s in enumerate(seqs)]
-    return (items, JaxEngine(db, device_family_min=0),
+    return (items, JaxEngine(jax_side[0], device_family_min=0),
             KmerEngine(db, "cpu", device_family_min=0),
             KmerEngine(db, "cpu", device_family=False))
 
 
-def test_annotate_family_matches_jax(setup, engines):
+def test_annotate_family_matches_jax(setup, jax_side, engines):
     """seq_scores equal, dict ORDER included, on the device path and the
     host path (native.family_scores), and so are the calls and best
     calls."""
     mapping = setup[2]
     items, jeng, teng, heng = engines
-    r_j, s_j = jeng.annotate_family(items, mapping, want_best=True)
+    r_j, s_j = jeng.annotate_family(items, jax_side[1], want_best=True)
     assert sum(len(s) for s in s_j) > 50
     for eng in (teng, heng):
         r_t, s_t = eng.annotate_family(items, mapping, want_best=True)
@@ -546,26 +583,27 @@ def test_annotate_family_matches_jax(setup, engines):
 @pytest.mark.parametrize("kw", [
     dict(target_genus_id=GENUS), dict(allow_ambiguous=True),
     dict(genus_filter=False, kmer_hit_threshold=1)])
-def test_best_family_matches_matches_jax(setup, engines, kw):
+def test_best_family_matches_matches_jax(setup, jax_side, engines, kw):
     mapping = setup[2]
     items, jeng, teng, heng = engines
-    want = jeng.best_family_matches(items, mapping, **kw)
-    assert sum(1 for m in want if m.gfam_id) > 3
-    assert teng.best_family_matches(items, mapping, **kw) == want
-    assert heng.best_family_matches(items, mapping, **kw) == want
+    want = fields(jeng.best_family_matches(items, jax_side[1], **kw))
+    assert sum(1 for m in want if m["gfam_id"]) > 3
+    assert fields(teng.best_family_matches(items, mapping, **kw)) == want
+    assert fields(heng.best_family_matches(items, mapping, **kw)) == want
 
 
-def test_best_family_matches_padded_arrays_match_jax(setup, engines):
+def test_best_family_matches_padded_arrays_match_jax(setup, jax_side,
+                                                     engines):
     db, seqs, mapping, offsets, lengths = setup
     items, jeng, teng, heng = engines
-    want = jeng.best_family_matches_padded(offsets, lengths, mapping,
+    want = jeng.best_family_matches_padded(offsets, lengths, jax_side[1],
                                            genus_filter=False,
                                            as_arrays=True)
     got = teng.best_family_matches_padded(offsets, lengths, mapping,
                                           genus_filter=False, as_arrays=True)
     assert len(want) == len(got) == len(seqs)
-    assert [want.materialize(i) for i in range(len(want))] == \
-        [got.materialize(i) for i in range(len(got))]
+    assert fields([want.materialize(i) for i in range(len(want))]) == \
+        fields([got.materialize(i) for i in range(len(got))])
 
 
 def test_annotate_family_device_matches_host(setup, engines):
@@ -593,20 +631,20 @@ def test_engines_sharing_a_mapping_keep_their_own_scorers(setup):
     db, seqs, _, _, _ = setup
     mapping = make_mapping(np.random.default_rng(9), db)
     items = [(f"q{i}", s) for i, s in enumerate(seqs)]
-    jeng = JaxEngine(db, device_family_min=0)
+    jeng = JaxEngine(as_jax_db(db), device_family_min=0)
     teng = KmerEngine(db, "cpu", device_family_min=0)
-    want = jeng.best_family_matches(items, mapping)
+    want = fields(jeng.best_family_matches(items, mapping))
     jax_cached = mapping._device_scorer
     assert isinstance(jax_cached[1], JF.DeviceFamilyScorer)
-    assert teng.best_family_matches(items, mapping) == want
+    assert fields(teng.best_family_matches(items, mapping)) == want
     assert mapping._device_scorer is jax_cached
     tdfs = teng._device_family_scorer(mapping)
     assert isinstance(tdfs, TF.DeviceFamilyScorer)
     # and the other order: a port scorer cached first is not what JAX reads
     mapping2 = make_mapping(np.random.default_rng(9), db)
-    assert teng.best_family_matches(items, mapping2) == want
+    assert fields(teng.best_family_matches(items, mapping2)) == want
     assert not hasattr(mapping2, "_device_scorer")
-    assert jeng.best_family_matches(items, mapping2) == want
+    assert fields(jeng.best_family_matches(items, mapping2)) == want
     assert isinstance(mapping2._device_scorer[1], JF.DeviceFamilyScorer)
     assert teng._family_scorers[mapping2][1] is not \
         mapping2._device_scorer[1]
@@ -697,9 +735,10 @@ def test_family_path_runs_without_jax():
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
+        "sys.modules['close_kmers_tpu'] = None\n"
         "import numpy as np\n"
         "from close_kmers_tpu_torch.cli import kser\n"
-        "from close_kmers_tpu_torch.core.api import BestCallReduction\n"
+        "from close_kmers_tpu_torch.core.family import BestCallReduction\n"
         f"ctx = kser.load_server_context({os.path.join(REPO, 'tests', 'golden', 'data')!r}, device='cpu')\n"
         "root = ctx.mapping_map['']\n"
         "items = [('q', 'MKV' * 40)]\n"

@@ -1,0 +1,444 @@
+"""The port's host modules against their JAX-package originals.
+
+``close_kmers_tpu_torch`` keeps its own copies of the JAX package's
+host-side modules (params, the encoder, translation, FASTA parsing, the
+signature and family DBs, the oracle, family scoring, the native C++
+scorer and the metrics).  Each case feeds one module pair the same
+numpy-seeded inputs and asserts equal outputs at zero tolerance: floats
+compare by bit pattern, objects field by field.
+
+The two helpers :func:`as_port_db` and :func:`as_jax_db` give the other
+port tests a DB of each package over the same numpy arrays.
+"""
+
+import dataclasses
+import io
+
+import numpy as np
+import pytest
+
+import close_kmers_tpu.params as JP
+from close_kmers_tpu.core import family as JF, oracle as JO
+from close_kmers_tpu.db import family_db as JFD, signature_db as JSD
+from close_kmers_tpu.io import fasta as JFA
+from close_kmers_tpu.native import api as JN
+from close_kmers_tpu.ops import encoder as JE, translate as JT
+from close_kmers_tpu.utils import metrics as JM
+import close_kmers_tpu_torch.params as TP
+from close_kmers_tpu_torch.core import family as TF, oracle as TO
+from close_kmers_tpu_torch.db import family_db as TFD, signature_db as TSD
+from close_kmers_tpu_torch.io import fasta as TFA
+from close_kmers_tpu_torch.native import api as TN
+from close_kmers_tpu_torch.ops import encoder as TE, translate as TT
+from close_kmers_tpu_torch.utils import metrics as TM
+
+ALPHA = list(JE.PROT_ALPHA)
+
+
+def _as_db(cls, db):
+    out = cls(db.keys, db.fi, db.oi, db.avg_off, db.wt, list(db.functions),
+              list(db.otus), db.n_hi)
+    if hasattr(db, "_test_prots"):
+        out._test_prots = db._test_prots
+    return out
+
+
+def as_port_db(db):
+    """The port's SignatureDB over ``db``'s numpy arrays."""
+    return _as_db(TSD.SignatureDB, db)
+
+
+def as_jax_db(db):
+    """The JAX package's SignatureDB over ``db``'s numpy arrays."""
+    return _as_db(JSD.SignatureDB, db)
+
+
+def as_jax_mapping(mapping):
+    """The JAX package's KmerFamilyMapping with ``mapping``'s families and
+    kmer->family CSR."""
+    out = JFD.KmerFamilyMapping()
+    out.families = [JFD.FamilyData(**vars(fd)) for fd in mapping.families]
+    keys, offs, vals = mapping.fam_csr()
+    for i, k in enumerate(keys.tolist()):
+        for f in vals[offs[i]:offs[i + 1]].tolist():
+            out.add_fam_mapping(f, k)
+    return out
+
+
+def norm(x):
+    """A comparable form of ``x``: dataclasses and plain objects by class
+    name and fields, arrays by dtype, shape and bytes, floats by bits."""
+    if dataclasses.is_dataclass(x) and not isinstance(x, type):
+        return (type(x).__name__,
+                tuple(norm(getattr(x, f.name))
+                      for f in dataclasses.fields(x)))
+    if isinstance(x, np.ndarray):
+        return ("nd", x.dtype.str, x.shape, x.tobytes())
+    if isinstance(x, (float, np.floating)):
+        return ("f", np.float64(x).tobytes())
+    if isinstance(x, np.integer):
+        return int(x)
+    if isinstance(x, dict):
+        return ("dict", tuple((norm(k), norm(v)) for k, v in x.items()))
+    if isinstance(x, (list, tuple)):
+        return (type(x).__name__, tuple(norm(v) for v in x))
+    if hasattr(x, "__dict__") and not callable(x):
+        return (type(x).__name__, norm(vars(x)))
+    return x
+
+
+def assert_same(a, b):
+    assert norm(a) == norm(b)
+
+
+def random_prots(rng, n, lo=20, hi=120):
+    return ["".join(rng.choice(ALPHA, size=int(rng.integers(lo, hi))))
+            for _ in range(n)]
+
+
+def random_dna(rng, n, lo=30, hi=300):
+    letters = list("acgtACGTnNrykm")
+    p = np.array([.2, .2, .2, .2, .04, .04, .04, .04, .01, .01, .005, .005,
+                  .005, .005])
+    return ["".join(rng.choice(letters, size=int(rng.integers(lo, hi)),
+                               p=p / p.sum())) for _ in range(n)]
+
+
+def small_db_entries(rng, n_funcs=10, prot_len=60):
+    """(entries, functions, reference proteins) of a family-style DB."""
+    prots = random_prots(rng, n_funcs, prot_len, prot_len + 1)
+    seen = {}
+    for f, p in enumerate(prots):
+        for i in range(len(p) - JP.K + 1):
+            km = p[i:i + JP.K]
+            if km not in seen:
+                seen[km] = (km, int(rng.integers(0, 300)), f,
+                            float(np.float32(rng.uniform(0.1, 5.0))),
+                            int(rng.integers(-1, 10)))
+    return list(seen.values()), [f"fn{i}" for i in range(n_funcs)], prots
+
+
+def queries(rng, prots, n=24):
+    """Queries of reference fragments, junk, lowercase and ambiguity."""
+    out = []
+    for _ in range(n):
+        p = prots[int(rng.integers(len(prots)))]
+        a = int(rng.integers(0, len(p) - 20))
+        junk = "".join(rng.choice(ALPHA + ["X", "a", "*"], size=8))
+        out.append(junk + p[a:a + int(rng.integers(12, 40))] + junk)
+    return out
+
+
+# -- one case per module ----------------------------------------------------
+
+def check_params(rng, tmp_path):
+    names = [n for n in dir(JP) if n.isupper()]
+    assert names and names == [n for n in dir(TP) if n.isupper()]
+    for n in names:
+        assert_same(getattr(JP, n), getattr(TP, n))
+    assert_same(JP.EngineParams(), TP.EngineParams())
+    kw = dict(order_constraint=1, min_hits=3, min_weighted_hits=2, max_gap=50)
+    assert_same(JP.EngineParams(**kw), TP.EngineParams(**kw))
+
+
+def check_encoder(rng, tmp_path):
+    seqs = random_prots(rng, 30) + ["", "MKVlk", "XXXXXXXXXXX", "ACDEFGHIK*Y"]
+    for s in seqs:
+        a, b = JE.seq_to_offsets(s), TE.seq_to_offsets(s)
+        assert_same(a, b)
+        assert_same(JE.windows_valid(a), TE.windows_valid(b))
+        assert_same(JE.encode_windows_hi_lo(a), TE.encode_windows_hi_lo(b))
+        assert JE.num_scanned_positions(len(s)) == \
+            TE.num_scanned_positions(len(s))
+    kmers = ["".join(rng.choice(ALPHA + ["x"], size=8)) for _ in range(200)]
+    codes = [JE.encode_aa_kmer(k) for k in kmers]
+    assert codes == [TE.encode_aa_kmer(k) for k in kmers]
+    ok = [c for c in codes if c <= JP.MAX_ENCODED]
+    assert [JE.decode_kmer(c) for c in ok] == [TE.decode_kmer(c) for c in ok]
+    assert [JE.split_hi_lo(c) for c in ok] == [TE.split_hi_lo(c) for c in ok]
+    raw = np.frombuffer("".join(kmers).encode("latin-1"), ">u8")
+    assert_same(JE.raw_keys_to_encoded(raw), TE.raw_keys_to_encoded(raw))
+    assert_same(JE.AA_TO_OFFSET, TE.AA_TO_OFFSET)
+
+
+def check_translate(rng, tmp_path):
+    reads = random_dna(rng, 40)
+    for s in reads[:12]:
+        assert JT.rev_comp(s) == TT.rev_comp(s)
+        for off in range(3):
+            assert JT.translate_kguts(s, off) == TT.translate_kguts(s, off)
+            assert JT.translate_t11(s, off) == TT.translate_t11(s, off)
+        assert_same(JT.six_frames_kguts(s), TT.six_frames_kguts(s))
+        assert_same(JT.six_frame_kguts_offsets(s),
+                    TT.six_frame_kguts_offsets(s))
+        assert_same(JT.get_possible_proteins(s), TT.get_possible_proteins(s))
+    assert_same(JT.batch_possible_protein_orfs(reads),
+                TT.batch_possible_protein_orfs(reads))
+    assert_same(JT.batch_orf_arrays(reads), TT.batch_orf_arrays(reads))
+
+
+def check_oracle(rng, tmp_path):
+    entries, funcs, prots = small_db_entries(rng)
+    jdb = JSD.SignatureDB.from_entries(entries, functions=funcs)
+    tdb = TSD.SignatureDB.from_entries(entries, functions=funcs)
+    for oc in (0, 1):
+        for s in queries(rng, prots, 12):
+            res = []
+            for O, db in ((JO, jdb), (TO, tdb)):
+                params = (JP if O is JO else TP).EngineParams(
+                    order_constraint=oc, min_hits=2 + oc)
+                calls, hits, otu = [], [], O.OtuStats()
+                O.process_aa_seq(s, db.lookup, params, calls, hits.append,
+                                 otu)
+                best = O.find_best_call(calls, db.function_of)
+                text = "".join([O.format_call(c, db.function_of)
+                                for c in calls]
+                               + [O.format_hit(h, db.function_of)
+                                  for h in hits]
+                               + [O.format_otu_stats("q", len(s), otu)])
+                res.append((calls, hits, otu.finalize(), best, text))
+            assert_same(*res)
+    dna = random_dna(rng, 4)
+    for s in dna:
+        a, b = [], []
+        JO.process_seq(s, jdb.lookup, JP.EngineParams(min_hits=2), a)
+        TO.process_seq(s, tdb.lookup, TP.EngineParams(min_hits=2), b)
+        assert_same(a, b)
+
+
+def check_signature_db(rng, tmp_path):
+    entries, funcs, _ = small_db_entries(rng)
+    jdb = JSD.SignatureDB.from_entries(entries, functions=funcs)
+    tdb = TSD.SignatureDB.from_entries(entries, functions=funcs)
+    assert_same(vars(jdb), vars(tdb))
+    # each package saves, the other loads: every format round-trips
+    for name, save, load in (("db.npz", "save_npz", "load_npz"),
+                             ("db.mm", "save_mem_map", "load_mem_map"),
+                             ("final.kmers", "save_final_kmers",
+                              "load_final_kmers")):
+        for src, other in ((jdb, TSD.SignatureDB), (tdb, JSD.SignatureDB)):
+            p = str(tmp_path / f"{type(src).__module__}.{name}")
+            getattr(src, save)(p)
+            got = getattr(other, load)(p, functions=funcs)
+            want = getattr(type(src), load)(p, functions=funcs)
+            assert_same(vars(got), vars(want))
+            assert len(got) == len(tdb)
+    idx = str(tmp_path / "function.index")
+    JSD.write_index_file(idx, funcs)
+    assert JSD.load_index_file(idx) == TSD.load_index_file(idx) == funcs
+
+
+def _families_files(rng, tmp_path):
+    genus = tmp_path / "genus.map"
+    genus.write_text("Escherichia\t561\nBacillus\t1386\n")
+    rows = []
+    for i in range(40):
+        g = ["Escherichia", "Bacillus", "Nomap"][i % 3]
+        rows.append("\t".join([f"PG{i % 9:08d}", "x", "x", f"fig|1.1.peg.{i}",
+                               str(int(rng.integers(50, 500))),
+                               f"function {i % 7}", "x", g,
+                               str(int(rng.integers(1, 10 ** 9)))]))
+    fams = tmp_path / "families.dat"
+    fams.write_text("\n".join(rows) + "\nshort\tline\n")
+    return str(genus), str(fams)
+
+
+def check_family_db(rng, tmp_path):
+    genus, fams = _families_files(rng, tmp_path)
+    pairs = [(int(rng.integers(0, 20)), int(rng.integers(0, 5000)))
+             for _ in range(300)]
+    maps = []
+    for FD in (JFD, TFD):
+        m = FD.KmerFamilyMapping()
+        m.load_genus_map(genus)
+        m.load_families(fams)
+        for f, k in pairs:
+            m.add_fam_mapping(f, k)
+            m.add_peg_mapping(f, k)
+        out = io.StringIO()
+        m.write_kmer_distribution(out)
+        maps.append((m.families, m.peg_names, m.peg_to_family, m.genus_map,
+                     m.fam_csr(), m.peg_csr(), m.family_meta_arrays(),
+                     m.families_of_kmer(pairs[0][1]),
+                     m.pegs_of_kmer(pairs[1][1]), out.getvalue(),
+                     m.dump_sizes()))
+    assert_same(*maps)
+
+
+def check_fasta(rng, tmp_path):
+    prots = random_prots(rng, 6)
+    fa = "".join(f">s{i} desc {i}\n{p[:30]}\n{p[30:]}\n"
+                 for i, p in enumerate(prots)) + ">empty\n\n>bad 1\nAC-DE\n"
+    reads = random_dna(rng, 5, 20, 60)
+    fq = "".join(f"@r{i}\n{r}\n+\n{'I' * len(r)}\n" for i, r in
+                 enumerate(reads))
+    for data in (fa, fa.encode()):
+        assert JFA.parse_fasta_bytes(data) == TFA.parse_fasta_bytes(data)
+    assert JFA.parse_fastq_bytes(fq) == TFA.parse_fastq_bytes(fq)
+    path = tmp_path / "x.fa"
+    path.write_text(fa)
+    assert list(JFA.parse_fasta_file(str(path))) == \
+        list(TFA.parse_fasta_file(str(path)))
+    # chunked parsing through the callbacks, cut at random places
+    cuts = sorted(rng.integers(0, len(fa), size=6))
+    for P in ((JFA.FastaParser, TFA.FastaParser),
+              (JFA.FastqParser, TFA.FastqParser)):
+        text = fa if P[0] is JFA.FastaParser else fq
+        got = []
+        for cls in P:
+            seen, defs, errs = [], [], []
+            p = cls(on_seq=lambda i, s: seen.append((i, s)),
+                    on_def_seq=lambda *a: defs.append(a),
+                    on_error=lambda *a: errs.append(a))
+            for a, b in zip([0, *cuts], [*cuts, len(text)]):
+                p.parse_chunk(text[a:b])
+            p.parse_complete()
+            got.append((seen, defs, errs))
+        assert got[0] == got[1]
+
+
+def _hit_arrays(rng, n_seqs=40):
+    lens = rng.integers(0, 60, size=n_seqs)
+    row_off = np.concatenate([[0], np.cumsum(lens)]).astype(np.int64)
+    n = int(row_off[-1])
+    pos = np.concatenate([np.sort(rng.choice(120, size=k, replace=False))
+                          for k in lens]).astype(np.int32)
+    # runs of one function, some noise, offsets that mostly pass the
+    # order_constraint drift test
+    fi = np.where(rng.random(n) < 0.9, (pos // 40) % 4,
+                  rng.integers(0, 4, size=n)).astype(np.int32)
+    oi = rng.integers(-1, 8, size=n).astype(np.int32)
+    av = (300 - pos + rng.integers(0, 3, size=n)).astype(np.int32)
+    wt = rng.uniform(0.1, 3.0, size=n).astype(np.float32)
+    return pos, fi, oi, av, wt, row_off
+
+
+def check_native(rng, tmp_path):
+    pos, fi, oi, av, wt, row_off = _hit_arrays(rng)
+    for oc, mh in ((0, 2), (1, 3), (0, 5)):
+        a = JN.score_batch(pos, fi, oi, av, wt, row_off,
+                           JP.EngineParams(order_constraint=oc, min_hits=mh),
+                           max_calls_per_seq=32, want_votes=True)
+        b = TN.score_batch(pos, fi, oi, av, wt, row_off,
+                           TP.EngineParams(order_constraint=oc, min_hits=mh),
+                           max_calls_per_seq=32, want_votes=True)
+        assert_same(a, b)
+        assert int(b[0].sum()) > 5
+        assert_same(JN.best_call_batch(*a[:6]), TN.best_call_batch(*b[:6]))
+        assert_same(JN.best_call_batch(a[0], None, None, *a[3:6]),
+                    TN.best_call_batch(b[0], None, None, *b[3:6]))
+    keys = np.unique(rng.integers(0, 5000, size=400)).astype(np.int64)
+    deg = rng.integers(1, 4, size=len(keys))
+    offs = np.concatenate([[0], np.cumsum(deg)]).astype(np.int64)
+    vals = rng.integers(0, 30, size=int(offs[-1])).astype(np.int32)
+    codes = rng.integers(0, 5000, size=int(row_off[-1])).astype(np.int64)
+    a = JN.family_scores(codes, row_off, keys, offs, vals)
+    b = TN.family_scores(codes, row_off, keys, offs, vals)
+    assert_same(a, b)
+    assert int(b[0].sum()) > 20
+    entries, funcs, prots = small_db_entries(rng)
+    db = TSD.SignatureDB.from_entries(entries, functions=funcs)
+    qs = queries(rng, prots, 16)
+    L = max(map(len, qs)) + 8
+    offsets = np.full((len(qs), L), 20, np.uint8)
+    for i, q in enumerate(qs):
+        offsets[i, :len(q)] = TE.seq_to_offsets(q)
+    lengths = np.array([len(q) for q in qs], np.int32)
+    assert_same(JN.HashPipeline(db).run(offsets, lengths, 2),
+                TN.HashPipeline(db).run(offsets, lengths, 2))
+
+
+def check_family(rng, tmp_path):
+    genus, fams = _families_files(rng, tmp_path)
+    n_fam = 20
+    maps = []
+    for FD in (JFD, TFD):
+        m = FD.KmerFamilyMapping()
+        m.load_genus_map(genus)
+        m.load_families(fams)
+        for k in range(3000):
+            for f in rng.__class__(np.random.PCG64(k)).choice(
+                    min(n_fam, len(m.families)), size=1 + k % 3,
+                    replace=False):
+                m.add_fam_mapping(int(f), k)
+                m.add_peg_mapping(int(f), k)
+        maps.append(m)
+    out = []
+    for F, O, m in ((JF, JO, maps[0]), (TF, TO, maps[1])):
+        hit_rng = np.random.default_rng(7)
+        per_seq = []
+        for s in range(12):
+            hits = [O.Hit(oI=0, pos=i, avg_off=0, fI=int(hit_rng.integers(3)),
+                          wt=1.0, code=int(hit_rng.integers(0, 3000)))
+                    for i in range(int(hit_rng.integers(0, 40)))]
+            calls = [O.Call(0, 20, 6, int(hit_rng.integers(3)),
+                            np.float32(hit_rng.uniform(1, 9)))
+                     for _ in range(int(hit_rng.integers(0, 4)))]
+            best = O.find_best_call(calls, lambda i: m.families[i].function)
+            fam_sc = F.accumulate_family_scores(hits, m)
+            peg_sc = F.accumulate_peg_scores(hits, m)
+            row = [fam_sc, peg_sc, F.all_matches_rows(fam_sc, m, 2),
+                   F.all_matches_rows(peg_sc, m, 2, family_mode=False)]
+            for amb, g, tg in ((False, True, 0), (True, True, 561),
+                               (False, False, 1386)):
+                bm = F.find_best_family_match(best, fam_sc, m, 2, amb, tg, g)
+                row += [bm, F.format_best_match_lookup(f"s{s}", bm),
+                        F.format_best_match_fq(bm)]
+            per_seq.append(row)
+        # the batched scan, fed one numpy rollup through BestCallReduction
+        nf = np.array([1, 2, 0], np.int32)
+        ofi = np.array([[0, 0, 0], [1, 2, 0], [0, 0, 0]], np.int32)
+        ocnt = np.array([[9, 0, 0], [7, 7, 0], [0, 0, 0]], np.int32)
+        owt = np.array([[5, 0, 0], [4, 4, 0], [0, 0, 0]], np.float32)
+        red = F.BestCallReduction(nf, ofi, ocnt, owt,
+                                  [fd.function for fd in m.families[:5]])
+        n_per = np.array([3, 2, 1], np.int32)
+        fam = np.array([0, 1, 2, 3, 4, 5], np.int32)
+        cnt = np.array([5, 4, 3, 6, 2, 8], np.int32)
+        wt = np.array([2.5, 1.0, 3.0, 0.5, 2.0, 4.0], np.float32)
+        first = np.array([3, 1, 2, 0, 1, 0], np.int32)
+        per_seq.append([red.best_call(s) for s in range(3)])
+        per_seq.append(F.find_best_family_matches_batch(
+            red, n_per, fam, cnt, wt, first, m, 2))
+        cols = F.find_best_family_matches_batch(
+            red, n_per, fam, cnt, wt, first, m, 2, as_arrays=True)
+        per_seq.append([cols.materialize(i) for i in range(len(cols))])
+        out.append(per_seq)
+    assert_same(*out)
+    placed = [m for row in out[1][:12] for m in row[4::3] if m.gfam_id]
+    assert len(placed) > 5
+
+
+def check_metrics(rng, tmp_path):
+    a, b = JM.Metrics(), TM.Metrics()
+    for name in rng.choice(["requests", "proteins", "x/y"], size=20):
+        n = int(rng.integers(1, 9))
+        a.inc(str(name), n)
+        b.inc(str(name), n)
+    assert a.counters == b.counters
+
+    def timeless(m):     # the uptime and the rate change between calls
+        return [ln for ln in m.render().splitlines()
+                if not ln.startswith(("uptime_s", "proteins_per_s"))]
+    assert timeless(a) == timeless(b)
+
+
+CHECKS = {"params": check_params, "encoder": check_encoder,
+          "translate": check_translate, "oracle": check_oracle,
+          "signature_db": check_signature_db, "family_db": check_family_db,
+          "fasta": check_fasta, "native": check_native,
+          "family": check_family, "metrics": check_metrics}
+
+
+@pytest.mark.parametrize("module", list(CHECKS))
+def test_copy_matches_jax_original(module, tmp_path):
+    CHECKS[module](np.random.default_rng(sorted(CHECKS).index(module)),
+                   tmp_path)
+
+
+def test_port_native_library_builds_under_dot_build():
+    from close_kmers_tpu_torch.native import build
+    path = build.build()
+    assert path == build.LIB
+    assert build.BUILD_DIR.endswith("close_kmers_tpu_torch/.build")
+    assert not path.startswith(build._HERE)

@@ -10,11 +10,13 @@ import pytest
 import torch
 
 from close_kmers_tpu.core import engine as E
-from close_kmers_tpu.db.signature_db import SignatureDB
 from close_kmers_tpu.ops.encoder import decode_kmer, seq_to_offsets
 from close_kmers_tpu.ops.pallas_select import select_wide_rows
 from close_kmers_tpu.params import HI_CARD, LO_CARD
+from close_kmers_tpu_torch.db.signature_db import SignatureDB
 from close_kmers_tpu_torch.ops.probe_select import probe_select
+
+from test_torch_host import as_jax_db
 
 WDS = [1, 7, 32]
 
@@ -44,7 +46,7 @@ def case(request):
     rng = np.random.default_rng(100 + wd)
     db = deep_bucket_db(rng, wd)
     assert db.max_bucket == wd
-    ddb = E.DeviceDB.from_db(db)
+    ddb = E.DeviceDB.from_db(as_jax_db(db))
     assert ddb.payload_wide is not None and ddb.wide_w == wd
     B, L = 16, 64
     offsets = rng.integers(0, 20, size=(B, L)).astype(np.uint8)

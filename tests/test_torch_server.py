@@ -26,6 +26,7 @@ from close_kmers_tpu_torch.utils.device import resolve_device
 from test_engine import random_db, random_seqs
 from test_golden import CONVS, GOLDEN, play
 from test_server import data_dir, post  # noqa: F401  (data_dir: fixture)
+from test_torch_host import as_port_db
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DATA = os.path.join(GOLDEN, "data")
@@ -36,7 +37,7 @@ def engines():
     rng = np.random.default_rng(31)
     db = random_db(rng)
     items = [(f"s{i}", s) for i, s in enumerate(random_seqs(rng, db, n=21))]
-    return items, JaxEngine(db), KmerEngine(db, "cpu")
+    return items, JaxEngine(db), KmerEngine(as_port_db(db), "cpu")
 
 
 def call_key(c):
@@ -199,12 +200,14 @@ def test_kser_family_warmup_raises(monkeypatch):
 
 
 def test_port_imports_without_jax():
-    """The package, its server and its CLI import with jax unavailable
-    (and the golden data loads and serves a query on the CPU)."""
+    """The package, its server and its CLI import with jax and the JAX
+    package unavailable (and the golden data loads and serves a query on
+    the CPU)."""
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
-        "import close_kmers_tpu_torch, close_kmers_tpu_torch.host\n"
+        "sys.modules['close_kmers_tpu'] = None\n"
+        "import close_kmers_tpu_torch, close_kmers_tpu_torch.native.api\n"
         "import close_kmers_tpu_torch.server.http\n"
         "import close_kmers_tpu_torch.core.device_score\n"
         "from close_kmers_tpu_torch.cli import kser\n"
