@@ -15,13 +15,19 @@ card, and exits 1 without one.
    from CUDA events: probe_select and scan_score on one 4096 x 300-aa
    batch against the real-size DB of phase 4; row_gather, famwide_select
    and family_group on the same batch against the family universe of
-   phase 4 (D = 3); probe_select again on the deep DB's sub blocks; and
+   phase 4 (D = 3), family_group also on the first chunk of phase 4's
+   /fq_lookup ORF batch and on both sides of its route limit (W*D =
+   8192 fused, 8193 sorted); probe_select again on the deep DB's sub
+   blocks; and
    the four probe-gather kernels at scripts/gather_exp.py's shapes
    (dma_gather: 2,490,000 ids from a [3.2M, 128] table; vgather:
    2,488,320 ids on a 448 x 128 tile; hbmstream: [3,198,976, 128] in
    blocks of 2048 rows; dmaflush: 32,768 copies of 8 x 128).
-   scan_score and row_gather are timed as the path calls them (the
-   wrapper, L2 flushed between calls) and by launch alone; row_gather
+   scan_score, row_gather and family_group are timed as the path calls
+   them (the wrapper, L2 flushed between calls) and by launch alone;
+   family_group beside its earlier design (sort_fams + the sorted walk),
+   with the stages of rollup_from_fams apart (group, global pack);
+   famwide_select by launch alone, warm and L2 flushed; row_gather
    beside ``torch.index_select``, and with a bad id, which must raise
    IndexError at its check and leave the context usable; scan_score
    also at B in {1, 33, 4096, 4097} x W in {1, 63, 64, 65, 304}, fresh,
@@ -434,30 +440,84 @@ def row_gather_bad_id(table, idx) -> None:
     max_abs_err([row_gather_plain(table, idx)], [out])
 
 
-def phase_family_kernels(T, TF, dfs, off_d, len_d, flush):
+def time_group_step(TF, FG, fams, gcap, flush, label):
+    """family_group at one shape: as the path calls it (the wrapper, L2
+    flushed), by launch alone (flushed and warm), the earlier design
+    (sort_fams + the sorted walk, flushed), the global pack apart and
+    the whole rollup_from_fams (flushed).  Returns the times and bound."""
+    B, W, D = fams.shape
+    M = W * D
+    cap = M + 1                       # the global pack's per-row width
+    out = FG._outputs(B, cap, fams.device)
+    wts = FG._weights(D, fams.device)
+    groups = FG.family_group(fams, cap)
+    t = dict(
+        wrapper_ms=cuda_ms_cold(lambda: FG.family_group(fams, cap), 20,
+                                flush),
+        launch_ms=cuda_ms_cold(lambda: FG._launch(fams, wts, cap, out), 20,
+                               flush),
+        launch_warm_ms=cuda_ms(lambda: FG._launch(fams, wts, cap, out), 20),
+        earlier_ms=cuda_ms_cold(
+            lambda: FG._launch_sorted(*FG.sort_fams(fams), cap, out), 20,
+            flush),
+        pack_ms=cuda_ms_cold(lambda: TF.pack_global(groups, gcap, M), 20,
+                             flush),
+        rollup_ms=cuda_ms_cold(lambda: TF.rollup_from_fams(fams, -gcap), 20,
+                               flush))
+    t.update(bound(nbytes(fams, *groups)))
+    log(f"family_group {label}: B={B} x W={W} x D={D}, cap {cap}, "
+        f"{int(groups[0].sum())} groups, route {FG.route(M)}: wrapper "
+        f"{t['wrapper_ms']:.4f} ms, launch alone {t['launch_ms']:.4f} ms "
+        f"(L2 flushed; warm {t['launch_warm_ms']:.4f}), earlier design "
+        f"(sort_fams + sorted walk) {t['earlier_ms']:.4f} ms, bound "
+        f"{t['bound_ms']:.4f} ms; rollup_from_fams (global pack of {gcap}) "
+        f"{t['rollup_ms']:.4f} ms = group + pack {t['pack_ms']:.4f} ms")
+    return t
+
+
+def family_group_routes(FG, device) -> None:
+    """Both routes of family_group at the fused route's widest row and
+    one past it, bit for bit against the plain version."""
+    import torch
+    rng = np.random.default_rng(9)
+    for W, D in ((FG.SMEM_MAX_COLS // 4, 4), (FG.SMEM_MAX_COLS // 3 + 1, 3)):
+        fams = rng.integers(0, 500, size=(37, W, D))
+        fams[rng.random(fams.shape) < 0.3] = -1
+        fams = torch.from_numpy(fams.astype(np.int32)).to(device)
+        got = FG.family_group(fams, W * D + 1)
+        torch.cuda.synchronize()
+        max_abs_err(FG.family_group_plain(fams, W * D + 1), got)
+        log(f"family_group: W*D = {W * D} (route {FG.route(W * D)}) equal to "
+            f"its plain version")
+
+
+def phase_family_kernels(T, TF, dfs, off_d, len_d, fq_chunk, flush):
     """Phase 2, family half: row_gather, famwide_select and family_group
     against their plain versions at the family path's shapes (the batch's
     windows on the famwide rows, its matched-row ids on the family table,
-    its sorted family planes)."""
+    its family rows; family_group also on one /fq_lookup chunk's rows and
+    on both sides of its route limit)."""
     import torch
+    from close_kmers_tpu_torch.ops import family_group as FG
     from close_kmers_tpu_torch.ops import row_gather as RG
-    from close_kmers_tpu_torch.ops.family_group import (family_group,
-                                                        family_group_plain)
-    from close_kmers_tpu_torch.ops.probe_select import (famwide_select,
-                                                        famwide_select_plain)
+    from close_kmers_tpu_torch.ops import probe_select as PS
     out = {}
     hi, lo, valid = T.encode_windows(off_d, len_d)
     B, W = hi.shape
     flat = (hi.reshape(-1), lo.reshape(-1), valid.reshape(-1))
 
     fargs = (*flat, dfs.famwide, dfs.fam_w, dfs.fam_d, T.FUSED_LO_BITS)
-    got = famwide_select(*fargs)
+    got = PS.famwide_select(*fargs)
     torch.cuda.synchronize()
-    err = max_abs_err(famwide_select_plain(*fargs), got)
+    err = max_abs_err(PS.famwide_select_plain(*fargs), got)
     check(int(got[0].sum()) > 0, "famwide probe found no hits")
     check(int((got[3] >= 0).sum()) > 0, "famwide probe found no families")
-    ms = cuda_ms(lambda: famwide_select(*fargs), 20)
-    plain_ms = cuda_ms(lambda: famwide_select_plain(*fargs), 5)
+    fw_out = PS.famwide_outputs(flat[0].numel(), dfs.fam_d, off_d.device)
+    ms = cuda_ms(lambda: PS._launch_famwide(*fargs, fw_out), 20)
+    cold_ms = cuda_ms_cold(lambda: PS._launch_famwide(*fargs, fw_out), 20,
+                           flush)
+    wrapper_ms = cuda_ms(lambda: PS.famwide_select(*fargs), 20)
+    plain_ms = cuda_ms(lambda: PS.famwide_select_plain(*fargs), 5)
     # windows in, four planes out; the table: the packed plane of each
     # distinct valid row, a hit's wt and D families
     ok = flat[2] & (flat[0] >= 0) & (flat[0] < dfs.famwide.shape[0])
@@ -465,16 +525,25 @@ def phase_family_kernels(T, TF, dfs, off_d, len_d, flush):
     hits = int(got[0].sum())
     bnd = bound(nbytes(*flat, *got) + rows * dfs.fam_w * 4
                 + hits * (1 + dfs.fam_d) * 4)
+    # what device memory moves in 64-B bursts: each distinct row's lo
+    # plane, each hit's d family picks (the wt pick mostly shares the lo
+    # plane's last burst)
+    bursts = (nbytes(*flat, *got) + rows * -(-dfs.fam_w * 4 // 64) * 64
+              + hits * dfs.fam_d * 64)
     log(f"famwide_select: N={flat[0].numel()} windows, rows "
         f"{tuple(dfs.famwide.shape)}, fam_w={dfs.fam_w}, D={dfs.fam_d}: "
-        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-        f"{bnd['bound_ms']:.4f} ms, max_abs_err {err}")
+        f"launch alone {ms:.4f} ms warm, {cold_ms:.4f} ms L2 flushed, "
+        f"wrapper {wrapper_ms:.4f} ms warm, plain {plain_ms:.4f} ms, bound "
+        f"{bnd['bound_ms']:.4f} ms ({rows} distinct rows, {hits} hits), "
+        f"max_abs_err {err}; in 64-B bursts {bursts / 1e6:.1f} MB = "
+        f"{bursts / ms / 1e9:.2f} TB/s warm")
     out["famwide_select"] = dict(
         name="famwide_select", route="cuda",
         source="close_kmers_tpu_torch/csrc/probe_select.cu",
         replaces="close_kmers_tpu/core/device_family.py:373",
-        max_abs_err=err, ms=ms, plain_ms=plain_ms, **bnd,
-        library_call=None, library_ms=None)
+        max_abs_err=err, ms=ms, cold_ms=cold_ms, wrapper_ms=wrapper_ms,
+        plain_ms=plain_ms, **bnd, library_call=None, library_ms=None)
+    fams = got[3].reshape(B, W, -1)
 
     idx = T.probe_windows(dfs.ddb, hi, lo, valid)[5].reshape(-1)
     table = dfs.fdb.fam
@@ -482,6 +551,8 @@ def phase_family_kernels(T, TF, dfs, off_d, len_d, flush):
     torch.cuda.synchronize()
     id_check.raise_if_bad()
     err = max_abs_err([RG.row_gather_plain(table, idx)], [got])
+    check(torch.equal(got.reshape(B, W, -1), fams),
+          "the two-gather and famwide family rows differ")
     row_gather_bad_id(table, idx)
     # as the path calls it (the wrapper with its queued flag copy, L2
     # cold), the launch alone, and one PyTorch call of the same function
@@ -509,26 +580,47 @@ def phase_family_kernels(T, TF, dfs, off_d, len_d, flush):
         **bnd, library_call="torch.index_select(table, 0, idx)",
         library_ms=lib_ms)
 
-    skey, swt, spos = TF.sort_fams(got.reshape(B, W, -1))
-    cap = skey.shape[1] + 1        # the global pack's per-row width
-    got = family_group(skey, swt, spos, cap)
+    # family_group on the family cell's rows, the global pack's width
+    cap = W * dfs.fam_d + 1
+    got = FG.family_group(fams, cap)
     torch.cuda.synchronize()
-    want = family_group_plain(skey, swt, spos, cap)
+    want = FG.family_group_plain(fams, cap)
     torch.cuda.synchronize()
     err = max_abs_err(want, got)
     check(int(got[0].sum()) > 0, "family_group found no groups")
-    ms = cuda_ms(lambda: family_group(skey, swt, spos, cap), 20)
-    plain_ms = cuda_ms(lambda: family_group_plain(skey, swt, spos, cap), 2)
-    bnd = bound(nbytes(skey, swt, spos, *got))
-    log(f"family_group: B={B} rows x M={skey.shape[1]} sorted columns, cap "
-        f"{cap}, {int(got[0].sum())} groups: kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, bound {bnd['bound_ms']:.4f} ms, max_abs_err "
-        f"{err}")
+    n_groups = int(got[0].sum())
+    t = time_group_step(TF, FG, fams, -(-n_groups // B) * B, flush,
+                        "family cell")
+    plain_ms = cuda_ms(lambda: FG.family_group_plain(fams, cap), 2)
+
+    # one /fq_lookup chunk: the ORF batch's first chunk, famwide rows
+    f_off, f_len = (torch.from_numpy(np.ascontiguousarray(x)).to(
+        off_d.device) for x in fq_chunk)
+    f_hi, f_lo, f_valid = T.encode_windows(f_off, f_len)
+    f_fams = PS.famwide_select(
+        f_hi.reshape(-1), f_lo.reshape(-1), f_valid.reshape(-1),
+        dfs.famwide, dfs.fam_w, dfs.fam_d, T.FUSED_LO_BITS)[3].reshape(
+            *f_hi.shape, -1)
+    f_cap = f_fams.shape[1] * f_fams.shape[2] + 1
+    f_got = FG.family_group(f_fams, f_cap)
+    torch.cuda.synchronize()
+    max_abs_err(FG.family_group_plain(f_fams, f_cap), f_got)
+    f_n = int(f_got[0].sum())
+    check(f_n > 0, "family_group found no groups in the fq chunk")
+    t_fq = time_group_step(TF, FG, f_fams,
+                           -(-f_n // f_fams.shape[0]) * f_fams.shape[0],
+                           flush, "fq chunk")
+    family_group_routes(FG, off_d.device)
     out["family_group"] = dict(
         name="family_group", route="cuda",
         source="close_kmers_tpu_torch/csrc/family_group.cu",
-        replaces="close_kmers_tpu/core/device_family.py:233",
-        max_abs_err=err, ms=ms, plain_ms=plain_ms, **bnd,
+        replaces="close_kmers_tpu/core/device_family.py:197-253",
+        max_abs_err=err, ms=t["wrapper_ms"], launch_ms=t["launch_ms"],
+        launch_warm_ms=t["launch_warm_ms"], earlier_ms=t["earlier_ms"],
+        pack_ms=t["pack_ms"], rollup_ms=t["rollup_ms"], plain_ms=plain_ms,
+        bound_ms=t["bound_ms"], bound_by=t["bound_by"],
+        fq_chunk={k: t_fq[k] for k in ("wrapper_ms", "launch_ms",
+                                       "earlier_ms", "rollup_ms", "bound_ms")},
         library_call=None, library_ms=None)
     return out
 
@@ -1018,19 +1110,29 @@ def phase_family(TF, eng, mapping, offsets, lengths, params, device):
     return N_QUERY / dt, spent
 
 
-def phase_reads(host, eng, mapping, offsets, params):
+def make_reads(host, eng, offsets):
+    """The reads of phase 4 (scripts/fq_bench.py synth_reads, seed 3) and
+    the first chunk of their ORF batch as best_family_matches_padded
+    cuts it.  Returns (reads, ORF count, (offsets, lengths) of the
+    chunk)."""
+    t0 = time.time()
+    reads = synth_reads(np.random.default_rng(3), offsets[:2048, :PROT_LEN],
+                        N_READS, READ_LEN)
+    o_off, o_len, _ = host.translate.batch_orf_arrays(
+        [seq for _, seq in reads])
+    B = eng._chunk_rows(o_off.shape[0], o_off.shape[1])
+    log(f"set-up: {N_READS} reads x {READ_LEN} bp, {o_off.shape[0]} ORFs "
+        f"padded to {o_off.shape[1]} aa (chunks of {B}), in "
+        f"{time.time() - t0:.1f} s")
+    return reads, o_off.shape[0], (o_off[:B], o_len[:B])
+
+
+def phase_reads(eng, mapping, reads, n_orfs, params):
     """Phase 4, reads: the /fq_lookup compute path on synthetic reads,
     and a sample against the host family path."""
     import torch
     from close_kmers_tpu_torch.server.http import (Request, ServerContext,
                                                    process_reads)
-    t0 = time.time()
-    reads = synth_reads(np.random.default_rng(3), offsets[:2048, :PROT_LEN],
-                        N_READS, READ_LEN)
-    n_orfs = host.translate.batch_orf_arrays(
-        [seq for _, seq in reads])[0].shape[0]
-    log(f"set-up: {N_READS} reads x {READ_LEN} bp, {n_orfs} ORFs, in "
-        f"{time.time() - t0:.1f} s")
     ctx = ServerContext(eng, family_mode=True)
     ctx.mapping_map[""] = mapping
     req = Request()
@@ -1172,7 +1274,9 @@ def main() -> int:
     len_d = torch.from_numpy(lengths[:BATCH]).to(device)
     flush = torch.empty(64 << 20, dtype=torch.int32, device=device)
     kernels = phase_kernels(T, ds.ddb, off_d, len_d, params, flush)
-    kernels.update(phase_family_kernels(T, TF, dfs, off_d, len_d, flush))
+    reads, n_orfs, fq_chunk = make_reads(host, eng, offsets)
+    kernels.update(phase_family_kernels(T, TF, dfs, off_d, len_d, fq_chunk,
+                                        flush))
     del flush
     phase_sub_select(T, ds_deep.ddb, torch.from_numpy(d_off[:BATCH]).to(
         device), torch.from_numpy(d_len[:BATCH]).to(device))
@@ -1195,7 +1299,7 @@ def main() -> int:
                                     params, "query")
     rate_fam, _spent = phase_family(TF, eng, mapping, offsets, lengths,
                                     params, device)
-    rate_reads, rate_orfs = phase_reads(host, eng, mapping, offsets, params)
+    rate_reads, rate_orfs = phase_reads(eng, mapping, reads, n_orfs, params)
     before = probe_select.launches
     rate_deep, rate_deep_eng = phase_query(host, T, ds_deep, eng_deep,
                                            db_deep, d_off, d_len, params,

@@ -12,21 +12,20 @@ device, so only the per-(sequence, family) groups leave it:
    through the ``row_gather`` kernel (the two-gather path), or straight
    from the folded famwide probe row through the ``famwide_select``
    kernel (one row read per window);
-3. each sequence's (family, 1/degree, position) stream is stably sorted
-   by family along the row (``torch.sort``), grouped and left-packed by
-   the ``family_group`` kernel, and packed per row, globally, or
-   hierarchically.
+3. each sequence's family row is weighted by 1/degree, sorted by
+   family, grouped and left-packed by the ``family_group`` kernel, and
+   packed per row, globally (:func:`pack_global`), or hierarchically.
 
 Exactness: counts are integer-exact; the 1/degree weights are host-made
-IEEE f32 constants (never a device divide); the stable sort keeps each
-family group in (window, family-list) order, the host path's visit
-order, and the group sums are sequential f32 adds, so the rollup is
-bit-identical to ``native.family_scores``.
+IEEE f32 constants (never a device divide); the sort keeps each family
+group in (window, family-list) order, the host path's visit order, and
+the group sums are sequential f32 adds, so the rollup is bit-identical
+to ``native.family_scores``.
 
 Ported: ``DeviceFamilyDB`` (``from_mapping``, ``famwide_from_mapping``,
 ``_dense_fam``, and ``from_numpy`` for state carried over from the JAX
 package), ``_gather_fams``, ``rollup_from_fams`` (all three packs; its
-sort is ``sort_fams``),
+row-local sort and scan are ``ops.family_group``),
 ``family_rollup`` (``_family_rollup_jit``), ``score_family``
 (``_score_family_jit``) and ``DeviceFamilyScorer``.  Left out:
 ``engine._probe_count_pad``, which only padded the TPU's gather.
@@ -41,7 +40,7 @@ import torch
 
 from ..db.signature_db import SignatureDB
 from ..params import EngineParams
-from ..ops.family_group import PAD_KEY, family_group
+from ..ops.family_group import family_group
 from ..ops.probe_select import famwide_select
 from ..ops.row_gather import IdCheck, row_gather
 from ..utils.device import resolve_device
@@ -159,29 +158,6 @@ def _gather_fams(fam_tab, idx):
     return fams.reshape(B, W, -1), check
 
 
-def sort_fams(fams):
-    """[B, W, D] family rows -> each row's (family key, 1/degree weight,
-    flat window*D + list position) planes [B, W*D], stably sorted by
-    key, pads (key PAD_KEY, weight 0) last: the input of the
-    ``family_group`` kernel."""
-    B, W, D = fams.shape
-    # 1/degree from host-made IEEE f32 constants, never a device divide
-    # (scalars, so no copy to the device and no sync)
-    deg = (fams >= 0).sum(dim=-1)
-    w = torch.zeros(deg.shape, dtype=torch.float32, device=fams.device)
-    for k in range(1, D + 1):
-        w = torch.where(deg == k, float(np.float32(1.0) / np.float32(k)), w)
-    fam_flat = fams.reshape(B, W * D)
-    ok = fam_flat >= 0
-    key = torch.where(ok, fam_flat, PAD_KEY)
-    wt_flat = torch.where(
-        ok, w[:, :, None].expand(B, W, D).reshape(B, W * D), 0.0)
-    # row-local stable sort by family id: pads sink, and each family
-    # group keeps (window, family-list) order, the host's visit order
-    skey, perm = torch.sort(key, dim=1, stable=True)
-    return skey, torch.gather(wt_flat, 1, perm), perm.to(torch.int32)
-
-
 def rollup_from_fams(fams, cap_seq: int, row_cap: int = 0):
     """[B, W, D] gathered family rows (-1 = pad/miss) -> per-sequence
     (family, count, weighted, first) groups, in one of three packs:
@@ -205,31 +181,41 @@ def rollup_from_fams(fams, cap_seq: int, row_cap: int = 0):
     program leaves scan state there; no parser reads them)."""
     B, W, D = fams.shape
     M = W * D
-    dev = fams.device
-    skey, swt, spos = sort_fams(fams)
     if cap_seq >= 0:
-        n, fam_d, cnt_d, ws_d, first_d = family_group(
-            skey, swt, spos, min(cap_seq, M + 1))
+        n, fam_d, cnt_d, ws_d, first_d = family_group(fams,
+                                                      min(cap_seq, M + 1))
         return torch.cat([n[:, None], fam_d, cnt_d, ws_d.view(torch.int32),
                           first_d], dim=1)
-
     R = min(row_cap, M + 1) if row_cap > 0 else M + 1
-    n, fam_d, cnt_d, ws_d, first_d = family_group(skey, swt, spos, R)
-    length = min(-cap_seq, B * R)
+    return pack_global(family_group(fams, R), -cap_seq, M)
+
+
+def pack_global(groups, gcap: int, M: int):
+    """The global pack of :func:`rollup_from_fams`: ``family_group``'s
+    (n_groups [B], fam, count, weighted, first [B, R]) -> [B + P*L],
+    n_groups then the P planes of each row's first R groups, packed
+    across the batch in row-major order, L = min(gcap, B*R), zero past
+    the batch's groups; folded (P = 3) when M + 1 < 2^15.  Each packed
+    slot gathers its group (its row by a search over the rows' ends), so
+    the work scales with L, not with the B*R slots of the planes."""
+    n, fam_d, cnt_d, ws_d, first_d = groups
+    B, R = fam_d.shape
+    dev = fam_d.device
+    length = min(gcap, B * R)
     kept = torch.clamp(n, max=R).to(torch.int64)
-    slot = torch.arange(R, device=dev)
-    dest = (torch.cumsum(kept, 0) - kept)[:, None] + slot[None, :]
-    # groups past the pack length go to one spare slot, cut off below
-    dest = torch.where((slot[None, :] < kept[:, None]) & (dest < length),
-                       dest, length).reshape(-1)
+    ends = torch.cumsum(kept, 0)
+    t = torch.arange(length, device=dev)
+    row = torch.searchsorted(ends, t, right=True)
+    filled = row < B
+    row = torch.clamp(row, max=max(B - 1, 0))
+    src = torch.where(filled, row * R + t - (ends[row] - kept[row]), 0)
 
     def pack(x):
-        out = torch.zeros(length + 1, dtype=torch.int32, device=dev)
-        return out.scatter_(0, dest, x.reshape(-1))[:length]
+        return torch.where(filled, x.reshape(-1)[src], 0)
 
     fold = (M + 1) < (1 << ROW_FIT_BITS)
     planes = [pack(fam_d)]
-    planes.append(pack((cnt_d << ROW_FOLD_SHIFT) | first_d) if fold
+    planes.append((pack(cnt_d) << ROW_FOLD_SHIFT) | pack(first_d) if fold
                   else pack(cnt_d))
     planes.append(pack(ws_d.view(torch.int32)))
     if not fold:

@@ -1,6 +1,6 @@
 // Wide-row probes: row fetch, match and select for every window.
 //
-// Two entries, one design.
+// Two entries.
 //
 // ck_probe_select replaces close_kmers_tpu/ops/pallas_select.py::
 // select_wide_rows (_select_kernel), the XLA row gather in front of it
@@ -21,20 +21,36 @@
 // ever matches.
 //
 // Bucket keys are unique, so at most one lane of a row's lo plane matches.
+// An invalid window reads nothing (its hi may lie outside the table) and
+// takes the miss values, which equal what the reference's probe with
+// hi=0, lo=-2 gives.
 //
-// Design: one warp per window.  The warp reads the lo plane of row `hi`
-// in chunks of 32 lanes (one int32 per lane, coalesced), finds the match
-// with __ballot_sync, and then reads only the picked values.  wd > 32
-// loops over chunks, so a deeper tier can reuse the match.  An invalid
-// window reads nothing (its hi may lie outside the table) and takes the
-// miss values, which equal what the reference's probe with hi=0, lo=-2
-// gives.
+// Bound: bytes, at one random row read per window: the lo plane (88 B
+// at wd = 22) plus a few scattered 4-byte picks, against ~29 B (probe) or
+// 9 + 4*d B (famwide) written.  The TPU path gathered the whole row
+// (row_w*4 B) into HBM and re-read it; here nothing of the row is written
+// back.  What holds both back on the card is latency: a window makes two
+// dependent trips to device memory (the lo plane, then the picks).
 //
-// Bound: bytes, at one random row read per window: the lo plane chunk
-// (128 B for wd <= 32) plus a few scattered 4-byte picks, against ~29 B
-// (probe) or 9 + 4*d B (famwide) written.  The TPU path gathered the whole
-// row (row_w*4 B) into HBM and re-read it; here nothing of the row is
-// written back.
+// probe_select's design: one warp per window.  The warp reads the lo
+// plane of row `hi` in chunks of 32 lanes (one int32 per lane, coalesced),
+// finds the match with __ballot_sync, and then reads only the picked
+// values.  wd > 32 loops over chunks.  At ~64 warps per SM that keeps
+// ~8,400 windows in flight on the card.
+//
+// famwide_select's design: a quarter-warp (8 lanes) per window and
+// kFwWindows windows per quarter-warp, all in flight together: each lane
+// reads 16 B of each window's lo plane (32 slots per quarter-warp in one
+// load where the rows are 16-B aligned, four 4-B loads where not), the
+// match lane's packed value gives fi by shuffle, and the wt and d family
+// picks of all the windows go out in one round, one lane each.  A warp
+// keeps 8 windows' rows in flight, ~67,000 on the card, 8 times the
+// warp-per-window design; more (4 windows a quarter-warp) measured no
+// faster.  What is left is device memory: each window's row costs ~6
+// bursts of 64 B (the lo plane, then the wt and d picks, each in its own
+// plane); on a table far larger than L2, where nearly every window reads
+// a row no other window of the batch reads, that is most of the card's
+// memory rate.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -90,34 +106,130 @@ __global__ void probe_select_kernel(
   }
 }
 
-__global__ void famwide_select_kernel(
+constexpr int kFwWindows = 2;              // windows per quarter-warp
+constexpr int kFwThreads = 256;
+constexpr int kFwGroups = kFwThreads / 8;   // quarter-warps per block
+
+// The first slot of chunk c of the quarter-warp's lo plane whose low
+// lo_bits equal qm, as (slot, packed value); slot -1 when none.  Each
+// lane tests the four slots c + 4*sub .. c + 4*sub + 3 below wd.
+template <bool kVec>
+__device__ __forceinline__ void fw_match(const int32_t* row, int32_t c,
+                                         int32_t wd, int32_t mask,
+                                         int32_t qm, int sub, int& slot,
+                                         int32_t& packed) {
+  const int j0 = c + 4 * sub;
+  int32_t x[4];
+  if (kVec) {
+    // in the row: j0 < wd, and wd + 3 <= row_w when 4 | row_w
+    const int4 q = *reinterpret_cast<const int4*>(row + j0);
+    x[0] = q.x;
+    x[1] = q.y;
+    x[2] = q.z;
+    x[3] = q.w;
+  } else {
+#pragma unroll
+    for (int t = 0; t < 4; ++t) x[t] = j0 + t < wd ? row[j0 + t] : 0;
+  }
+  slot = -1;
+#pragma unroll
+  for (int t = 3; t >= 0; --t) {
+    if (j0 + t < wd && (x[t] & mask) == qm) {
+      slot = j0 + t;
+      packed = x[t];
+    }
+  }
+}
+
+template <bool kVec>
+__global__ void __launch_bounds__(kFwThreads) famwide_select_kernel(
     const int32_t* __restrict__ hi, const int32_t* __restrict__ lo,
     const uint8_t* __restrict__ valid, const int32_t* __restrict__ rows,
     int64_t n_windows, int32_t n_rows, int32_t row_w, int32_t wd, int32_t d,
     int32_t lo_bits, uint8_t* __restrict__ found, int32_t* __restrict__ fi,
     float* __restrict__ wt, int32_t* __restrict__ fams) {
   const int lane = threadIdx.x & 31;
-  const int64_t w =
-      static_cast<int64_t>(blockIdx.x) * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (w >= n_windows) return;  // uniform across the warp
-  const int32_t h = hi[w];
-  const bool ok = valid[w] != 0 && h >= 0 && h < n_rows;  // warp-uniform
-  const int32_t* row = rows + static_cast<int64_t>(ok ? h : 0) * row_w;
+  const int sub = lane & 7;            // lane within the quarter-warp
+  const int first_lane = lane & ~7;    // its first lane in the warp
   const int32_t mask = (1 << lo_bits) - 1;
-  const int pos = ok ? find_slot(row, wd, lo[w], mask, lane) : -1;
-  // the d family ids: one lane each
-  int32_t* out = fams + w * d;
-  for (int p = lane; p < d; p += 32)
-    out[p] = pos >= 0 ? row[(2 + p) * wd + pos] : -1;
-  if (lane != 0) return;
-  if (pos >= 0) {
-    found[w] = 1;
-    fi[w] = row[pos] >> lo_bits;
-    wt[w] = __int_as_float(row[wd + pos]);
-  } else {
-    found[w] = 0;
-    fi[w] = -1;
-    wt[w] = 0.0f;
+  // window k of quarter-warp q: consecutive quarter-warps take
+  // consecutive windows, so the per-window loads and stores coalesce
+  const int64_t w0 = static_cast<int64_t>(blockIdx.x) * kFwGroups * kFwWindows
+                     + (threadIdx.x >> 3);
+  int64_t w[kFwWindows];
+  const int32_t* row[kFwWindows];
+  int32_t qm[kFwWindows];
+  bool ok[kFwWindows];
+#pragma unroll
+  for (int k = 0; k < kFwWindows; ++k) {
+    w[k] = w0 + static_cast<int64_t>(k) * kFwGroups;
+    ok[k] = false;
+    qm[k] = 0;
+    if (w[k] < n_windows) {
+      const int32_t h = hi[w[k]];
+      ok[k] = valid[w[k]] != 0 && h >= 0 && h < n_rows;
+      qm[k] = lo[w[k]] & mask;
+      row[k] = rows + static_cast<int64_t>(ok[k] ? h : 0) * row_w;
+    } else {
+      row[k] = rows;
+    }
+  }
+  // 1. the lo planes of all kFwWindows windows, then the matches
+  int pos[kFwWindows];
+  int32_t fiv[kFwWindows];
+#pragma unroll
+  for (int k = 0; k < kFwWindows; ++k) {
+    pos[k] = -1;
+    fiv[k] = -1;
+  }
+  for (int32_t c = 0; c < wd; c += 32) {   // uniform: wd is the launch's
+    int slot[kFwWindows];
+    int32_t packed[kFwWindows];
+#pragma unroll
+    for (int k = 0; k < kFwWindows; ++k) {
+      slot[k] = -1;
+      packed[k] = 0;
+      if (ok[k] && pos[k] < 0 && c + 4 * sub < wd)
+        fw_match<kVec>(row[k], c, wd, mask, qm[k], sub, slot[k], packed[k]);
+    }
+#pragma unroll
+    for (int k = 0; k < kFwWindows; ++k) {
+      const unsigned hit =
+          (__ballot_sync(0xffffffffu, slot[k] >= 0) >> first_lane) & 0xffu;
+      const int src = first_lane + (hit ? __ffs(hit) - 1 : 0);
+      const int p = __shfl_sync(0xffffffffu, slot[k], src);
+      const int32_t v = __shfl_sync(0xffffffffu, packed[k], src);
+      if (hit && pos[k] < 0) {
+        pos[k] = p;
+        fiv[k] = v >> lo_bits;
+      }
+    }
+  }
+  // 2. the picks, all windows' together: lane p takes plane 1 + p (p = 0
+  // the wt bits, p >= 1 family p - 1)
+  for (int p0 = 0; p0 <= d; p0 += 8) {
+    const int p = p0 + sub;
+    int32_t got[kFwWindows];
+#pragma unroll
+    for (int k = 0; k < kFwWindows; ++k)
+      got[k] = pos[k] >= 0 && p <= d ? row[k][(1 + p) * wd + pos[k]]
+                                     : (p ? -1 : 0);
+#pragma unroll
+    for (int k = 0; k < kFwWindows; ++k) {
+      if (w[k] >= n_windows || p > d) continue;
+      if (p == 0)
+        wt[w[k]] = __int_as_float(got[k]);
+      else
+        fams[w[k] * d + p - 1] = got[k];
+    }
+  }
+  if (sub == 0) {
+#pragma unroll
+    for (int k = 0; k < kFwWindows; ++k) {
+      if (w[k] >= n_windows) continue;
+      found[w[k]] = pos[k] >= 0;
+      fi[w[k]] = fiv[k];
+    }
   }
 }
 
@@ -154,8 +266,14 @@ extern "C" int ck_famwide_select(const void* hi, const void* lo,
                                  int32_t lo_bits, void* found, void* fi,
                                  void* wt, void* fams, void* stream) {
   if (n_windows > 0) {
-    famwide_select_kernel<<<blocks_for(n_windows), kWarpsPerBlock * 32, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
+    const unsigned blocks = static_cast<unsigned>(
+        (n_windows + kFwGroups * kFwWindows - 1) / (kFwGroups * kFwWindows));
+    // 16-B loads of the lo plane where every row starts 16-B aligned
+    const bool vec = reinterpret_cast<uintptr_t>(rows) % 16 == 0 &&
+                     row_w % 4 == 0;
+    auto kernel = vec ? famwide_select_kernel<true>
+                      : famwide_select_kernel<false>;
+    kernel<<<blocks, kFwThreads, 0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const int32_t*>(hi), static_cast<const int32_t*>(lo),
         static_cast<const uint8_t*>(valid), static_cast<const int32_t*>(rows),
         n_windows, n_rows, row_w, wd, d, lo_bits,

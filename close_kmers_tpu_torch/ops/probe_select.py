@@ -9,8 +9,10 @@
   _score_family_jit``, which XLA ran on the TPU (no Pallas kernel).
 
 On a CUDA tensor each launches its entry of the hand-written kernel
-``csrc/probe_select.cu``; on a CPU tensor it runs its ``*_plain``
-version, the same gather + masked sums in plain torch.
+``csrc/probe_select.cu`` (a warp per window for the probe; a
+quarter-warp per window, four windows in flight each, for famwide); on
+a CPU tensor it runs its ``*_plain`` version, the same gather + masked
+sums in plain torch.
 """
 
 from __future__ import annotations
@@ -145,21 +147,33 @@ def famwide_select(hi, lo, valid, famwide, wd: int, d: int, lo_bits: int):
     dev = _check(hi, lo, valid, famwide, wd, (2 + d) * wd)
     if dev.type == "cpu":
         return famwide_select_plain(hi, lo, valid, famwide, wd, d, lo_bits)
-    N = hi.shape[0]
+    out = famwide_outputs(hi.shape[0], d, dev)
+    _launch_famwide(hi, lo, valid, famwide, wd, d, lo_bits, out)
+    famwide_select.launches += 1
+    return out
+
+
+def famwide_outputs(n: int, d: int, dev):
+    """Empty (found, fi, wt, fams [n, d]) planes on ``dev``."""
+    return (torch.empty(n, dtype=torch.bool, device=dev),
+            torch.empty(n, dtype=torch.int32, device=dev),
+            torch.empty(n, dtype=torch.float32, device=dev),
+            torch.empty((n, d), dtype=torch.int32, device=dev))
+
+
+def _launch_famwide(hi, lo, valid, famwide, wd: int, d: int, lo_bits: int,
+                    out) -> None:
+    """``ck_famwide_select`` into the preallocated ``out`` (the planes of
+    :func:`famwide_outputs`); no checks, no count."""
+    dev = hi.device
     H, row_w = famwide.shape
-    found = torch.empty(N, dtype=torch.bool, device=dev)
-    fi = torch.empty(N, dtype=torch.int32, device=dev)
-    wt = torch.empty(N, dtype=torch.float32, device=dev)
-    fams = torch.empty((N, d), dtype=torch.int32, device=dev)
     fn = _build.kernel("ck_famwide_select", _FW_ARGTYPES)
     with torch.cuda.device(dev):
         rc = fn(hi.data_ptr(), lo.data_ptr(), valid.data_ptr(),
-                famwide.data_ptr(), N, H, row_w, wd, d, lo_bits,
-                found.data_ptr(), fi.data_ptr(), wt.data_ptr(),
-                fams.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+                famwide.data_ptr(), hi.shape[0], H, row_w, wd, d, lo_bits,
+                *(t.data_ptr() for t in out),
+                torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "ck_famwide_select")
-    famwide_select.launches += 1
-    return found, fi, wt, fams
 
 
 famwide_select.launches = 0

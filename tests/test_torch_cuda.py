@@ -22,8 +22,9 @@ from close_kmers_tpu_torch.db import family_db
 from close_kmers_tpu_torch.db.signature_db import SignatureDB
 from close_kmers_tpu_torch.params import EngineParams
 from close_kmers_tpu_torch.ops import gather_exp as gx
-from close_kmers_tpu_torch.ops.family_group import (PAD_KEY, family_group,
-                                                    family_group_plain)
+from close_kmers_tpu_torch.ops.family_group import (SMEM_MAX_COLS,
+                                                    family_group,
+                                                    family_group_plain, route)
 from close_kmers_tpu_torch.ops.probe_select import (famwide_select,
                                                     famwide_select_plain,
                                                     probe_select,
@@ -303,21 +304,143 @@ def test_famwide_select_kernel_matches_plain(cuda, wd, d):
 @pytest.mark.parametrize("cap", [0, 3, 40, 901])
 def test_family_group_kernel_matches_plain(cuda, cap):
     rng = np.random.default_rng(cap)
-    B, M = 777, 900
-    key = rng.integers(0, 60, size=(B, M)).astype(np.int32)
-    key[rng.random((B, M)) < 0.5] = PAD_KEY
-    wt = rng.choice(np.float32([1.0, 0.5, 1 / 3]), size=(B, M))
-    skey, perm = torch.sort(torch.from_numpy(key), dim=1, stable=True)
-    swt = torch.gather(torch.from_numpy(wt.astype(np.float32)), 1, perm)
-    spos = perm.to(torch.int32)
-    want = family_group_plain(skey, swt, spos, cap)
+    B, W, D = 777, 300, 3
+    fams = rng.integers(0, 60, size=(B, W, D)).astype(np.int32)
+    fams[rng.random((B, W, D)) < 0.5] = -1
+    fams = torch.from_numpy(fams)
+    want = family_group_plain(fams, cap)
     before = family_group.launches
-    got = family_group(skey.to(cuda), swt.to(cuda), spos.to(cuda), cap)
+    got = family_group(fams.to(cuda), cap)
     torch.cuda.synchronize()
     assert family_group.launches == before + 1
     assert int(want[0].sum()) > B
     for w_, g in zip(want, got):
         assert torch.equal(bits(w_), bits(g))
+
+
+def _edge_fams(case, rng):
+    """[B, W, D] family rows for the fused kernel's edge cases; B = 13 is
+    no multiple of the eight rows a block takes."""
+    if case.startswith("d"):                          # d1, d3, d4, d8
+        D = int(case[1:])
+        fams = rng.integers(0, 300, size=(13, 200, D))
+        fams[rng.random(fams.shape) < 0.4] = -1
+    elif case == "all_pad":
+        fams = np.full((13, 300, 3), -1)
+    elif case == "one_family":
+        fams = rng.integers(0, 300, size=(13, 304, 3))
+        fams[rng.random(fams.shape) < 0.4] = -1
+        fams[0] = 77                                  # every slot, M adds
+        fams[1, :, 1] = 77                            # every window
+    elif case == "ids_near_2^30":
+        fams = rng.integers((1 << 30) - 40, 1 << 30, size=(13, 304, 3))
+        fams[rng.random(fams.shape) < 0.3] = -1
+    else:                                   # a row width: one per team
+        W, D = {"m130": (43, 3), "m300": (100, 3), "m912": (304, 3),
+                "m1500": (500, 3), "m3000": (1000, 3), "at_limit": (2048, 4),
+                "past_limit": (2731, 3)}[case]
+        fams = rng.integers(0, 500, size=(13, W, D))
+        fams[rng.random(fams.shape) < 0.3] = -1
+    return torch.from_numpy(fams.astype(np.int32))
+
+
+@pytest.mark.parametrize("case", [
+    "all_pad", "one_family", "d1", "d3", "d4", "d8", "ids_near_2^30",
+    "m130", "m300", "m912", "m1500", "m3000", "at_limit", "past_limit"])
+def test_family_group_edge_cases_match_plain(cuda, case):
+    """Both routes of family_group bit for bit against the plain version
+    at caps 0, 3 and W*D+1, on the fused kernel's edge cases and at a row
+    width of each of its teams; the route is picked by W*D alone."""
+    fams = _edge_fams(case, np.random.default_rng(len(case)))
+    B, W, D = fams.shape
+    assert route(W * D) == ("sorted" if case == "past_limit" else "fused")
+    fams_d = fams.to(cuda)
+    for cap in (0, 3, W * D + 1):
+        want = family_group_plain(fams_d, cap)
+        got = family_group(fams_d, cap)
+        torch.cuda.synchronize()
+        for w_, g in zip(want, got):
+            assert torch.equal(bits(w_), bits(g))
+    n = want[0].cpu()
+    assert (n == 0).all() if case == "all_pad" else int(n.sum()) > B
+    if case == "one_family":
+        assert int(n[0]) == 1 and int(want[2][0, 0]) == W * D
+
+
+def test_family_group_limit_matches_the_kernel(cuda):
+    """The wrapper's route limit is the kernel's, and the kernel refuses
+    a row past it."""
+    from close_kmers_tpu_torch.ops import _build
+    from close_kmers_tpu_torch.ops import family_group as FG
+    assert _build.kernel("ck_family_group_max_cols", [])() == SMEM_MAX_COLS
+    fams = torch.full((2, SMEM_MAX_COLS + 1, 1), 5, dtype=torch.int32,
+                      device=cuda)
+    with pytest.raises(RuntimeError, match="ck_family_group"):
+        FG._launch(fams, FG._weights(1, fams.device), 3,
+                   FG._outputs(2, 3, cuda))
+
+
+def _famwide_table(rng, H, wd, d, row_w, lo_bits=13):
+    tab = rng.integers(-1, 1 << 20, size=(H, row_w)).astype(np.int32)
+    lo_plane = np.full((H, wd), (1 << 30) | ((1 << lo_bits) - 1), np.int32)
+    depth = rng.integers(0, wd + 1, size=H)
+    for h in range(H):
+        lo_plane[h, :depth[h]] = rng.choice(8000, size=depth[h],
+                                            replace=False)
+    fi = rng.integers(0, 1 << 18, size=(H, wd)).astype(np.int32)
+    tab[:, :wd] = np.where(lo_plane < 8000, (fi << lo_bits) | lo_plane,
+                           lo_plane)
+    return tab, lo_plane, depth
+
+
+@pytest.mark.parametrize("wd", [1, 22, 32, 33, 64])
+@pytest.mark.parametrize("n", [1, 127, 20479])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_famwide_select_windows_match_plain(cuda, wd, n, aligned):
+    """The quarter-warp kernel at wd in one and two 32-slot chunks, at N
+    of one window and one short of a multiple of a block's 128 windows,
+    on rows with and without 16-B alignment (the 16-B and the 4-B loads),
+    with out-of-range hi and invalid windows."""
+    rng = np.random.default_rng(wd * 1000 + n)
+    H, d, lo_bits = 3000, 3, 13
+    row_w = -(-(2 + d) * wd // 128) * 128 if aligned else (2 + d) * wd + 5
+    tab, lo_plane, depth = _famwide_table(rng, H, wd, d, row_w, lo_bits)
+    hi = rng.integers(0, H, size=n).astype(np.int32)
+    lo = rng.integers(0, 8000, size=n).astype(np.int32)
+    for i in np.nonzero((rng.random(n) < 0.6) & (depth[hi] > 0))[0]:
+        lo[i] = lo_plane[hi[i], rng.integers(0, depth[hi[i]])]
+    hi[rng.random(n) < 0.05] = H + 7                  # out of range
+    hi[rng.random(n) < 0.05] = -3
+    valid = rng.random(n) < 0.9
+    args = [torch.from_numpy(x) for x in (hi, lo, valid, tab)]
+    want = famwide_select_plain(*args, wd, d, lo_bits)
+    got = famwide_select(*(a.to(cuda) for a in args), wd, d, lo_bits)
+    torch.cuda.synchronize()
+    if n > 1:
+        assert int(want[0].sum()) > n // 8
+    for w_, g in zip(want, got):
+        assert torch.equal(bits(w_), bits(g))
+
+
+@pytest.mark.parametrize("d", [1, 8])
+def test_famwide_select_invalid_windows_read_nothing(cuda, d):
+    """Every window invalid, or valid with hi far outside the table: each
+    takes the miss values and reads no row (a read would fault)."""
+    rng = np.random.default_rng(d)
+    H, wd, n = 100, 22, 4095
+    tab, _, _ = _famwide_table(rng, H, wd, d, 128 * (1 + (2 + d) * wd // 128))
+    tab_d = torch.from_numpy(tab).to(cuda)
+    lo = torch.zeros(n, dtype=torch.int32, device=cuda)
+    for hi, valid in ((torch.zeros(n, dtype=torch.int32), np.zeros(n, bool)),
+                      (torch.full((n,), 1 << 30, dtype=torch.int32),
+                       np.ones(n, bool))):
+        found, fi, wt, fams = famwide_select(
+            hi.to(cuda), lo, torch.from_numpy(valid).to(cuda), tab_d, wd, d,
+            13)
+        torch.cuda.synchronize()
+        assert not found.any()
+        assert (fi == -1).all() and (fams == -1).all()
+        assert (wt.view(torch.int32) == 0).all()
 
 
 def test_family_path_on_card_matches_cpu(cuda):

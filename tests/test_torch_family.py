@@ -34,7 +34,8 @@ from close_kmers_tpu_torch.core import api as TA
 from close_kmers_tpu_torch.core import device_family as TF
 from close_kmers_tpu_torch.core.api import KmerEngine
 from close_kmers_tpu_torch.core.engine import FastAnnotator
-from close_kmers_tpu_torch.ops.family_group import family_group
+from close_kmers_tpu_torch.ops.family_group import (SMEM_MAX_COLS,
+                                                    family_group)
 from close_kmers_tpu_torch.ops.probe_select import famwide_select
 from close_kmers_tpu_torch.ops.row_gather import IdCheck, row_gather
 
@@ -216,15 +217,13 @@ def test_famwide_select_rejects_bad_inputs(bad):
 
 
 @pytest.mark.parametrize("bad", [
-    dict(skey=torch.zeros((2, 5), dtype=torch.int64)),
-    dict(swt=torch.zeros((2, 5), dtype=torch.float64)),
-    dict(spos=torch.zeros((2, 4), dtype=torch.int32)),
+    dict(fams=torch.zeros((2, 5, 3), dtype=torch.int64)),
+    dict(fams=torch.zeros((2, 15), dtype=torch.int32)),
+    dict(fams=torch.zeros((2, 5, 0), dtype=torch.int32)),
     dict(cap=-1),
 ])
 def test_family_group_rejects_bad_inputs(bad):
-    args = dict(skey=torch.zeros((2, 5), dtype=torch.int32),
-                swt=torch.zeros((2, 5), dtype=torch.float32),
-                spos=torch.zeros((2, 5), dtype=torch.int32), cap=3)
+    args = dict(fams=torch.zeros((2, 5, 3), dtype=torch.int32), cap=3)
     args.update(bad)
     with pytest.raises((TypeError, ValueError)):
         family_group(**args)
@@ -326,6 +325,63 @@ def test_rollup_weights_are_host_constants():
     assert list(got[5:8]) == [7, 7, 7]
     assert got[9:12].view(np.float32).tolist() == [want] * 3
     assert list(got[13:16]) == [0, 1, 2]
+
+
+def edge_fams(case):
+    """[B, W, D] family rows for the kernel's edge cases (B = 13 is no
+    multiple of the eight rows a block takes)."""
+    rng = np.random.default_rng(len(case))
+    if case.startswith("d"):                         # d1, d3, d4, d8
+        return synthetic_fams(int(case[1:]), 13, 40, int(case[1:]), 0.6)
+    if case == "all_pad":
+        return np.full((13, 30, 3), -1, np.int32)
+    if case == "one_family":
+        # row 0: one family on every slot, the longest add chain; row 1:
+        # it in every window beside others; the rest random
+        fams = synthetic_fams(5, 13, 50, 3, 0.5)
+        fams[0] = 77
+        fams[1, :, 1] = 77
+        return fams
+    if case == "ids_near_2^30":
+        fams = rng.integers((1 << 30) - 40, 1 << 30, size=(13, 40, 3))
+        fams[rng.random(fams.shape) < 0.3] = -1
+        return fams.astype(np.int32)
+    W, D = {"at_limit": (2048, 4), "past_limit": (2731, 3)}[case]
+    assert (W * D <= SMEM_MAX_COLS) == (case == "at_limit")
+    return synthetic_fams(11, 2, W, D, 0.3)
+
+
+EDGE_CASES = ["all_pad", "one_family", "d1", "d3", "d4", "d8",
+              "ids_near_2^30", "at_limit", "past_limit"]
+
+
+@pytest.mark.parametrize("case", EDGE_CASES)
+def test_rollup_edge_cases_match_jax(case):
+    """The plain composition (sort_fams + group_sorted_plain) equals
+    JAX's rollup_from_fams on the fused kernel's edge cases, per-row at
+    caps 0, 3 and W*D+1 and in the global pack, at zero tolerance."""
+    fams = edge_fams(case)
+    B, W, D = fams.shape
+    M = W * D
+    for cap_seq in (0, 3, M + 1, -B * (M + 1)):
+        want = np.asarray(JF.rollup_from_fams(jnp.asarray(fams), cap_seq))
+        got = TF.rollup_from_fams(torch.from_numpy(fams), cap_seq).numpy()
+        assert want.shape == got.shape
+        n_want = want[:, 0] if cap_seq >= 0 else want[:B]
+        assert np.array_equal(n_want, got[:, 0] if cap_seq >= 0 else got[:B])
+        folded = (M + 1) < (1 << 15)
+        c = min(cap_seq, M + 1) if cap_seq >= 0 else cap_seq
+        assert_parsed_equal(parse(want, B, c, 0, folded),
+                            parse(got, B, c, 0, folded))
+    n = got[:B]
+    if case == "all_pad":
+        assert not n.any()
+    else:
+        assert n.sum() > B
+    if case == "one_family":
+        r = TF.DeviceFamilyScorer.finish_rollup_rows(
+            TF.rollup_from_fams(torch.from_numpy(fams), M + 1).numpy(), M + 1)
+        assert r[0][0] == 1 and r[2][0] == M
 
 
 # -- DeviceFamilyScorer against JAX ----------------------------------------
