@@ -27,14 +27,17 @@ card, and exits 1 without one.
    them (the wrapper, L2 flushed between calls) and by launch alone;
    family_group beside its earlier design (sort_fams + the sorted walk),
    with the stages of rollup_from_fams apart (group, global pack);
-   famwide_select by launch alone, warm and L2 flushed; row_gather
-   beside ``torch.index_select``, and with a bad id, which must raise
+   famwide_select by launch alone, warm and L2 flushed, with its traffic
+   in 64-B bursts; probe_select the same, and as the path calls it
+   (warm), on the query cell and on the sub blocks; row_gather beside
+   ``torch.index_select``, and with a bad id, which must raise
    IndexError at its check and leave the context usable; scan_score
    also at B in {1, 33, 4096, 4097} x W in {1, 63, 64, 65, 304}, fresh,
    chained and state-only.  Each kernel's record carries its bound (the
-   bytes it must move over 3.35 TB/s, shared-memory bytes over the SMs'
-   bank rate for vgather) and, where one PyTorch call computes the same
-   function, that call's time.
+   bytes it must move over 3.35 TB/s; for vgather the longer of its
+   shared-memory bytes over the SMs' bank rate and its 64-bit adds over
+   their INT32 rate, both in the record) and, where one PyTorch call
+   computes the same function, that call's time.
    Tiers: the 20.5M-kmer DB of phase 4 built in each probe tier by
    ``DeviceDB.from_db`` flags (the six variants of
    tests/test_engine.py::test_probe_layout_parity), one table at a time;
@@ -258,9 +261,10 @@ def cuda_ms_cold(fn, reps: int, flush) -> float:
     return sum(a.elapsed_time(b) for a, b in times) / reps
 
 
-def smem_bytes_per_s() -> float:
-    """The card's shared-memory rate: 32 banks x 4 B per clock on each
-    SM, at the SM's maximum clock (nvidia-smi clocks.max.sm)."""
+def sm_clocks_per_s() -> float:
+    """The card's SM clocks a second: its SMs times their maximum clock
+    (nvidia-smi clocks.max.sm).  Each SM's shared memory moves 32 banks x
+    4 B a clock, and its 64 INT32 lanes do one operation a clock each."""
     import subprocess
     import torch
     mhz = float(subprocess.run(
@@ -268,19 +272,22 @@ def smem_bytes_per_s() -> float:
          "--format=csv,noheader,nounits"], capture_output=True, text=True,
         check=True, timeout=60).stdout.split()[0])
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    return sms * 128 * mhz * 1e6
+    return sms * mhz * 1e6
 
 
-def bound(hbm_bytes: float, smem_bytes: float = 0.0,
-          smem_rate: float = 0.0) -> dict:
-    """bound_ms / bound_by of a kernel whose least time is set by the bytes
-    it must move: device-memory bytes (each input read once, each output
-    written once) over HBM_BYTES_PER_S, or shared-memory bytes over
-    ``smem_rate``, whichever takes longer.  Every kernel here does a few
-    integer operations per byte, far below the card's operation rates."""
+def bound(hbm_bytes: float, smem_bytes: float = 0.0, smem_rate: float = 0.0,
+          ops: float = 0.0, ops_rate: float = 0.0) -> dict:
+    """bound_ms / bound_by of a kernel: the longest of the device-memory
+    bytes it must move (each input read once, each output written once)
+    over HBM_BYTES_PER_S, its shared-memory bytes over ``smem_rate`` and
+    its integer operations over ``ops_rate``.  Most kernels here do a few
+    integer operations per byte, far below the card's operation rates, and
+    pass no ``ops``."""
     ms = hbm_bytes / HBM_BYTES_PER_S * 1e3
     if smem_bytes:
         ms = max(ms, smem_bytes / smem_rate * 1e3)
+    if ops and ops / ops_rate * 1e3 > ms:
+        return dict(bound_ms=ops / ops_rate * 1e3, bound_by="operations")
     return dict(bound_ms=ms, bound_by="bytes")
 
 
@@ -344,37 +351,78 @@ def scan_sweep(device) -> int:
     return n
 
 
+def probe_bursts(flat, found, idx, table, wd: int) -> int:
+    """The distinct 64-B bursts of ``table`` that probe_select must read:
+    start and the lo plane (ints 0..wd) of each valid row, and the fi,
+    oi, avg_off and wt picks of each hit (idx = start + slot)."""
+    import torch
+    hi, _lo, valid = flat
+    row_w = table.shape[1]
+    ok = valid & (hi >= 0) & (hi < table.shape[0])
+    rows = torch.unique(hi[ok]).long() * row_w * 4            # byte offsets
+    first, last = rows // 64, (rows + (wd + 1) * 4 - 1) // 64
+    span = torch.arange(int((last - first).max()) + 1 if rows.numel() else 1,
+                        device=hi.device)
+    lo_bursts = first[:, None] + span[None, :]
+    lo_bursts = lo_bursts[lo_bursts <= last[:, None]]
+    h = hi[found].long()
+    slot = (idx[found] - table[h, 0]).long()
+    key = torch.unique(h * wd + slot)
+    base = key // wd * row_w * 4
+    picks = torch.stack([(base + (1 + p * wd + key % wd) * 4) // 64
+                         for p in range(1, 5)]).reshape(-1)
+    return int(torch.unique(torch.cat([lo_bursts, picks])).numel())
+
+
+def time_probe(flat, table, wd: int, n: int, flush, label: str):
+    """probe_select against its plain version on ``table``'s rows: the
+    launch alone (warm and L2 flushed), the wrapper as the path calls it
+    (warm), the plain version, the bound and the 64-B burst traffic.
+    Returns (the kernel's planes, the record's fields)."""
+    import torch
+    from close_kmers_tpu_torch.ops import probe_select as PS
+    args = (*flat, table, wd, n)
+    got = PS.probe_select(*args)
+    torch.cuda.synchronize()
+    err = max_abs_err(PS.probe_select_plain(*args), got)
+    check(int(got[0].sum()) > 0, f"probe on {label} found no hits")
+    out = PS.probe_outputs(flat[0].numel(), flat[0].device)
+    rec = dict(
+        max_abs_err=err,
+        ms=cuda_ms(lambda: PS._launch_probe(*args, out), 20),
+        cold_ms=cuda_ms_cold(lambda: PS._launch_probe(*args, out), 20, flush),
+        wrapper_ms=cuda_ms(lambda: PS.probe_select(*args), 20),
+        plain_ms=cuda_ms(lambda: PS.probe_select_plain(*args), 5))
+    # windows in, six planes out; the table: each valid window's row
+    # (start + lo plane) once per distinct row, a hit's four payload ints
+    # once per distinct hit
+    ok = flat[2] & (flat[0] >= 0) & (flat[0] < table.shape[0])
+    rows = int(torch.unique(flat[0][ok]).numel())
+    hits = int(torch.unique(got[5][got[0]]).numel())
+    rec.update(bound(nbytes(*flat, *got) + rows * (1 + wd) * 4 + hits * 16))
+    bursts = probe_bursts(flat, got[0], got[5], table, wd)
+    rec["burst_mb"] = (nbytes(*flat, *got) + bursts * 64) / 1e6
+    rec["burst_tbps"] = rec["burst_mb"] / rec["ms"] / 1e3   # MB/ms is GB/s
+    log(f"probe_select on {label}: N={flat[0].numel()} windows, rows "
+        f"{tuple(table.shape)}, wd={wd}: launch alone {rec['ms']:.4f} ms "
+        f"warm, {rec['cold_ms']:.4f} ms L2 flushed, wrapper "
+        f"{rec['wrapper_ms']:.4f} ms warm, plain {rec['plain_ms']:.4f} ms, "
+        f"bound {rec['bound_ms']:.4f} ms ({rows} distinct rows, {hits} "
+        f"hits), max_abs_err {err}; {bursts} bursts of 64 B + windows and "
+        f"planes = {rec['burst_mb']:.1f} MB = {rec['burst_tbps']:.2f} TB/s "
+        f"warm ({bursts / max(hits, 1):.2f} bursts a hit)")
+    return got, rec
+
+
 def phase_kernels(T, ddb, off_d, len_d, params, flush):
     """Phase 2: each kernel against its plain version at the shapes the
     main path gives it."""
     import torch
     from close_kmers_tpu_torch.ops import scan_score as S
-    from close_kmers_tpu_torch.ops.probe_select import (probe_select,
-                                                        probe_select_plain)
     hi, lo, valid = T.encode_windows(off_d, len_d)
     flat = (hi.reshape(-1), lo.reshape(-1), valid.reshape(-1))
-    args = (*flat, ddb.payload_wide, ddb.wide_w, ddb.n)
-    got = probe_select(*args)
-    torch.cuda.synchronize()
-    want = probe_select_plain(*args)
-    torch.cuda.synchronize()
-    err_p = max_abs_err(want, got)
-    check(int(got[0].sum()) > 0, "probe found no hits")
-    ms_p = cuda_ms(lambda: probe_select(*args), 20)
-    plain_ms_p = cuda_ms(lambda: probe_select_plain(*args), 5)
-    # windows in, six planes out; the table: each valid window's row
-    # (start + lo plane) once per distinct row, a hit's four payload ints
-    # once per distinct hit
-    ok = flat[2] & (flat[0] >= 0) & (flat[0] < ddb.payload_wide.shape[0])
-    rows = int(torch.unique(flat[0][ok]).numel())
-    hits = int(torch.unique(got[5][got[0]]).numel())
-    bound_p = bound(nbytes(*flat, *got) + rows * (1 + ddb.wide_w) * 4
-                    + hits * 16)
-    log(f"probe_select: N={flat[0].numel()} windows, row_w="
-        f"{ddb.payload_wide.shape[1]}, wd={ddb.wide_w}: kernel {ms_p:.4f} ms,"
-        f" plain {plain_ms_p:.4f} ms, bound {bound_p['bound_ms']:.4f} ms "
-        f"({rows} rows, {hits} hits), max_abs_err {err_p}")
-
+    got, rec = time_probe(flat, ddb.payload_wide, ddb.wide_w, ddb.n, flush,
+                          "the query cell's payload-wide rows")
     sh = hi.shape
     found, fi, _oi, av, wt, _idx = (x.reshape(sh) for x in got)
     sargs = (found, fi, av, wt, params.min_hits, params.min_weighted_hits,
@@ -403,8 +451,7 @@ def phase_kernels(T, ddb, off_d, len_d, params, flush):
         "probe_select": dict(
             name="probe_select", route="cuda",
             source="close_kmers_tpu_torch/csrc/probe_select.cu",
-            replaces="close_kmers_tpu/ops/pallas_select.py:54",
-            max_abs_err=err_p, ms=ms_p, plain_ms=plain_ms_p, **bound_p,
+            replaces="close_kmers_tpu/ops/pallas_select.py:54", **rec,
             library_call=None, library_ms=None),
         "scan_score": dict(
             name="scan_score", route="cuda",
@@ -634,7 +681,8 @@ def phase_gather_kernels(device):
     from close_kmers_tpu_torch.ops import gather_exp as gx
     from close_kmers_tpu_torch.scripts import gather_exp as GX
     gen = torch.Generator(device=device).manual_seed(2)
-    smem_rate = smem_bytes_per_s()
+    clocks = sm_clocks_per_s()
+    smem_rate, ops_rate = clocks * 128, clocks * 64
 
     def randint(high, size):
         return torch.randint(0, high, size, generator=gen, device=device,
@@ -681,13 +729,20 @@ def phase_gather_kernels(device):
     rows, chunk = gx.VGATHER_TILE_ROWS, GX.VGATHER_CHUNK
     tile = randint(100, (rows, 128))
     vidx = randint(rows, (GX.N_IDX // chunk * chunk,))
+    # shared memory: every gathered row once; the INT32 lanes: a 64-bit
+    # add (two operations) for every gathered element
+    smem_bytes, ops = vidx.numel() * 128 * 4, vidx.numel() * 128 * 2
     hold("vgather", "scripts/gather_exp.py:163",
-         f"{vidx.numel()} ids in chunks of {chunk} on a {rows} x 128 tile",
+         f"{vidx.numel()} ids in chunks of {chunk} on a {rows} x 128 tile "
+         f"(shared-memory bound {smem_bytes / smem_rate * 1e3:.4f} ms, "
+         f"INT32 bound {ops / ops_rate * 1e3:.4f} ms)",
          lambda: gx.vgather(tile, vidx, chunk),
          lambda: gx._launch_vgather(tile, vidx, chunk),
          lambda: gx.vgather_plain(tile, vidx, chunk), 10,
          bound(nbytes(vidx, tile) + vidx.numel() // chunk * 4,
-               vidx.numel() * 128 * 4, smem_rate))
+               smem_bytes, smem_rate, ops, ops_rate))
+    out["vgather"].update(smem_bound_ms=smem_bytes / smem_rate * 1e3,
+                          alu_bound_ms=ops / ops_rate * 1e3)
     del tile, vidx
 
     nr = GX.N_ROWS // GX.HBM_BLK * GX.HBM_BLK
@@ -715,25 +770,15 @@ def phase_gather_kernels(device):
     return out
 
 
-def phase_sub_select(T, ddb, off_d, len_d):
+def phase_sub_select(T, ddb, off_d, len_d, flush) -> dict:
     """Phase 2: probe_select against its plain version on the sub_blocks
-    tier's shapes (the deep DB's block rows, one 4096-protein batch)."""
-    import torch
-    from close_kmers_tpu_torch.ops.probe_select import (probe_select,
-                                                        probe_select_plain)
+    tier's shapes (the deep DB's block rows, one 4096-protein batch), timed
+    as on the query cell; returns the record's fields."""
     hi, lo, valid = T.encode_windows(off_d, len_d)
     rows = T.sub_block_ids(ddb, hi, lo, valid).reshape(-1)
-    args = (rows, lo.reshape(-1), valid.reshape(-1), ddb.sub_blocks,
-            ddb.sub_w, ddb.n)
-    got = probe_select(*args)
-    torch.cuda.synchronize()
-    err = max_abs_err(probe_select_plain(*args), got)
-    check(int(got[0].sum()) > 0, "the sub-block probe found no hits")
-    ms = cuda_ms(lambda: probe_select(*args), 20)
-    plain_ms = cuda_ms(lambda: probe_select_plain(*args), 5)
-    log(f"probe_select on sub blocks {tuple(ddb.sub_blocks.shape)} (sub_w "
-        f"{ddb.sub_w}), {rows.numel()} windows: kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, max_abs_err {err}")
+    return time_probe((rows, lo.reshape(-1), valid.reshape(-1)),
+                      ddb.sub_blocks, ddb.sub_w, ddb.n, flush,
+                      "the deep DB's sub blocks")[1]
 
 
 def phase_tiers(T, db, ddb, off_d, len_d):
@@ -1277,9 +1322,10 @@ def main() -> int:
     reads, n_orfs, fq_chunk = make_reads(host, eng, offsets)
     kernels.update(phase_family_kernels(T, TF, dfs, off_d, len_d, fq_chunk,
                                         flush))
+    kernels["probe_select"]["sub_blocks"] = phase_sub_select(
+        T, ds_deep.ddb, torch.from_numpy(d_off[:BATCH]).to(device),
+        torch.from_numpy(d_len[:BATCH]).to(device), flush)
     del flush
-    phase_sub_select(T, ds_deep.ddb, torch.from_numpy(d_off[:BATCH]).to(
-        device), torch.from_numpy(d_len[:BATCH]).to(device))
     kernels.update(phase_gather_kernels(device))
     log(f"phase 2: all {len(kernels)} kernels equal their plain versions")
     tiers = phase_tiers(T, db, ds.ddb, off_d, len_d)

@@ -21,12 +21,20 @@
 //   of tile[id] over the ids of chunk c.  The TPU's 1 MB tile does not fit
 //   a block's 227 KB of shared memory, so the tile is the caller's (the
 //   experiment takes 448 x 128 i32 = 224 KB, opt-in dynamic shared
-//   memory).  Design: persistent blocks, one per SM; each copies the tile
-//   into shared memory once, then walks chunks; in a chunk each warp takes
-//   an id, its lanes read the row from shared memory (consecutive lanes,
-//   consecutive banks) and add into int64.
-//   Bound: shared-memory reads, w*4 B per id; device memory reads only the
-//   ids (4 B each) and the tile once per block.
+//   memory).  Design: persistent blocks of 32 warps, one per SM; each
+//   copies the tile into shared memory once (biased by 2^31, so that the
+//   adds need no sign extension), then walks its chunks in rounds.  A warp
+//   takes 32-id groups of each chunk: one coalesced load brings a group's
+//   ids, one a lane, the next group's load goes out before this group's
+//   rows are read, and each __shfl_sync hands two row offsets to the warp.
+//   A 128-int row is one 16-B shared-memory read per lane (4-B reads where
+//   w % 4 != 0), four rows in flight into four 64-bit accumulators.  Each warp
+//   writes one partial sum per chunk into the shared memory left beside
+//   the tile, and one barrier per round (every chunk of the block, at the
+//   experiment's shape) precedes the chunks' final sums.
+//   Bound: shared-memory reads, w*4 B per id, and as much the 64-bit adds
+//   (2 integer operations per element over 64 INT32 lanes per SM); device
+//   memory reads only the ids (4 B each) and the tile once per block.
 //
 // ck_hbmstream replaces pallas_hbmstream (a sequential stream of the table
 //   through the auto-pipelined grid, one f32 sum per block of rows):
@@ -45,7 +53,7 @@
 //   Bound: device memory write bandwidth at rpd*w*4 B (4 KB at 8 x 128)
 //   per scattered copy; buf (1 MB) stays in L2.
 //
-// The two sums are the exact integer sum, rounded once to f32 (int64
+// The two sums are the exact integer sum, rounded once to f32 (64-bit
 // accumulation, __ll2float_rn), so they equal the plain torch versions bit
 // for bit at any size, and the Pallas f32 sums while the sum stays below
 // 2^24.
@@ -56,7 +64,13 @@
 namespace {
 
 constexpr int kGatherWarps = 4;     // warps per block of ck_dma_gather
-constexpr int kReduceThreads = 512; // threads per block of the two sums
+constexpr int kReduceThreads = 512; // threads per block of hbmstream
+constexpr int kVgWarps = 32;        // warps per block of ck_vgather
+constexpr int kVgThreads = kVgWarps * 32;  // also ids between a warp's groups
+constexpr int kVgUnroll = 4;        // rows in flight per warp
+constexpr int kVgMaxSlots = 32;     // chunks per round: one summing warp each
+static_assert(kVgWarps == 32, "a chunk's final sum takes one partial a lane");
+static_assert(kVgUnroll % 2 == 0, "a shuffle hands over two rows");
 constexpr int kFlushWarps = 8;      // warps per block of ck_dmaflush
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -166,25 +180,160 @@ __device__ __forceinline__ long long block_sum(long long v) {
   return s;
 }
 
-__global__ void vgather_kernel(const int32_t* __restrict__ tile,
-                               int32_t tile_ints, const int32_t* __restrict__ idx,
-                               int64_t n_chunks, int32_t chunk, int32_t w,
-                               float* __restrict__ out) {
-  extern __shared__ __align__(16) int32_t t[];
-  for (int i = threadIdx.x; i < tile_ints; i += blockDim.x) t[i] = tile[i];
+// One 64-bit add per element: the tile is held biased (x ^ 2^31, that is
+// x + 2^31 as an unsigned value), so a row's ints add as unsigned with a
+// carry and no sign extension; the chunk's sum less ids * w * 2^31 is the
+// exact sum modulo 2^64, as the signed int64 sum is.
+__device__ __forceinline__ void vg_add4(unsigned long long& acc, uint4 v) {
+  acc += v.x;
+  acc += v.y;
+  acc += v.z;
+  acc += v.w;
+}
+
+// kVgUnroll rows of the tile at offsets r[] (ints), added into acc[], each
+// into its own accumulator.  kVec: 16-B reads (w % 4 == 0), a 128-int
+// row in one warp instruction; else 4-B reads.
+template <bool kVec>
+__device__ __forceinline__ void vg_add_rows(
+    const uint32_t* t, const int32_t (&r)[kVgUnroll], int32_t w, int lane,
+    unsigned long long (&acc)[kVgUnroll]) {
+  if (kVec) {
+    for (int c = 4 * lane; c < w; c += 128) {
+      uint4 v[kVgUnroll];
+#pragma unroll
+      for (int u = 0; u < kVgUnroll; ++u)
+        v[u] = *reinterpret_cast<const uint4*>(t + r[u] + c);
+#pragma unroll
+      for (int u = 0; u < kVgUnroll; ++u) vg_add4(acc[u], v[u]);
+    }
+  } else {
+    for (int c = lane; c < w; c += 32) {
+#pragma unroll
+      for (int u = 0; u < kVgUnroll; ++u) acc[u] += t[r[u] + c];
+    }
+  }
+}
+
+// Adds the rows of a group of n (<= 32) ids into acc[]: lane j holds the
+// j-th id's row offset (id * w ints) in `off`.  The tile holds fewer than
+// 2^16 ints, so a whole group goes two offsets a shuffle.  kW: the row
+// width when fixed at compile time, else 0 (w at run time).
+template <bool kVec, int kW>
+__device__ __forceinline__ void vg_rows(const uint32_t* t, int32_t off, int n,
+                                        int32_t w_run, int lane,
+                                        unsigned long long (&acc)[kVgUnroll]) {
+  const int32_t w = kW ? kW : w_run;
+  if (n == 32) {                      // lanes j < 16: rows j and j + 16
+    const uint32_t pair =
+        static_cast<uint32_t>(off) |
+        (static_cast<uint32_t>(__shfl_down_sync(0xffffffffu, off, 16)) << 16);
+    for (int j = 0; j < 16; j += kVgUnroll / 2) {
+      int32_t r[kVgUnroll];
+#pragma unroll
+      for (int u = 0; u < kVgUnroll / 2; ++u) {
+        const uint32_t p = __shfl_sync(0xffffffffu, pair, j + u);
+        r[2 * u] = static_cast<int32_t>(p & 0xffffu);
+        r[2 * u + 1] = static_cast<int32_t>(p >> 16);
+      }
+      vg_add_rows<kVec>(t, r, w, lane, acc);
+    }
+    return;
+  }
+  for (int j = 0; j < n; ++j) {                         // n is warp-uniform
+    const int32_t r = __shfl_sync(0xffffffffu, off, j);
+    if (kVec) {
+      for (int c = 4 * lane; c < w; c += 128)
+        vg_add4(acc[0], *reinterpret_cast<const uint4*>(t + r + c));
+    } else {
+      for (int c = lane; c < w; c += 32) acc[0] += t[r + c];
+    }
+  }
+}
+
+// Persistent blocks of kVgWarps warps, one per SM (the tile fills its
+// shared memory).  Block b takes chunks b, b + gridDim.x, ...; the
+// block's chunks go in rounds of `slots`, each warp adding the rows of
+// its 32-id groups of every chunk of the round (group g of a chunk to
+// warp g % kVgWarps) and writing one partial sum per chunk beside the
+// tile; after the round's one barrier, warp i adds chunk i's partials.
+template <bool kVec, int kW>
+__global__ void __launch_bounds__(kVgThreads, 1) vgather_kernel(
+    const int32_t* __restrict__ tile, int32_t tile_ints, bool tile_vec,
+    const int32_t* __restrict__ idx, int64_t n_chunks, int32_t chunk,
+    int32_t w, int32_t slots, float* __restrict__ out) {
+  extern __shared__ __align__(16) uint32_t t[];
+  unsigned long long* part =            // [slots][kVgWarps], 8-B aligned
+      reinterpret_cast<unsigned long long*>(t + ((tile_ints + 1) & ~1));
+  if (tile_vec) {                       // the tile, biased, into t
+    const uint4* src = reinterpret_cast<const uint4*>(tile);
+    for (int i = threadIdx.x; i < tile_ints / 4; i += kVgThreads) {
+      uint4 v = src[i];
+      v.x ^= 0x80000000u;
+      v.y ^= 0x80000000u;
+      v.z ^= 0x80000000u;
+      v.w ^= 0x80000000u;
+      reinterpret_cast<uint4*>(t)[i] = v;
+    }
+  } else {
+    for (int i = threadIdx.x; i < tile_ints; i += kVgThreads)
+      t[i] = static_cast<uint32_t>(tile[i]) ^ 0x80000000u;
+  }
   __syncthreads();
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int n_warps = blockDim.x >> 5;
-  for (int64_t c = blockIdx.x; c < n_chunks; c += gridDim.x) {
-    const int32_t* ids = idx + c * chunk;
-    long long acc = 0;
-    for (int k = warp; k < chunk; k += n_warps) {
-      const int32_t* row = t + static_cast<int64_t>(ids[k]) * w;
-      for (int j = lane; j < w; j += 32) acc += row[j];
+  // this block's chunks, and this warp's 32-id groups in each chunk
+  const int64_t m =
+      blockIdx.x < n_chunks ? (n_chunks - 1 - blockIdx.x) / gridDim.x + 1 : 0;
+  const int first = warp * 32;
+  const int groups = first < chunk ? (chunk - first - 1) / kVgThreads + 1
+                                   : 0;
+  const unsigned long long bias =
+      (static_cast<unsigned long long>(chunk) * w) << 31;
+  for (int64_t base = 0; base < m; base += slots) {
+    const int cnt = static_cast<int>(m - base < slots ? m - base : slots);
+    const int total = cnt * groups;
+    // the ids of the warp's item i (chunk i / groups of the round, group
+    // i % groups), one a lane: loaded one item ahead of its rows
+    auto ids_of = [&](int i) {
+      const int ch = i / groups;
+      const int g = first + (i - ch * groups) * kVgThreads;
+      const int64_t c = blockIdx.x + (base + ch) * gridDim.x;
+      return g + lane < chunk ? idx[c * chunk + g + lane] : 0;
+    };
+    unsigned long long acc[kVgUnroll];
+#pragma unroll
+    for (int u = 0; u < kVgUnroll; ++u) acc[u] = 0;
+    int32_t next = total > 0 ? ids_of(0) : 0;
+    for (int i = 0; i < total; ++i) {
+      const int32_t id = next;
+      if (i + 1 < total) next = ids_of(i + 1);
+      const int ch = i / groups;
+      const int g = first + (i - ch * groups) * kVgThreads;
+      vg_rows<kVec, kW>(t, id * w, chunk - g < 32 ? chunk - g : 32, w, lane,
+                        acc);
+      if (i - ch * groups == groups - 1) {       // the chunk's last group
+        unsigned long long s = 0;
+#pragma unroll
+        for (int u = 0; u < kVgUnroll; ++u) {
+          s += acc[u];
+          acc[u] = 0;
+        }
+        for (int o = 16; o > 0; o >>= 1) s += __shfl_down_sync(0xffffffffu, s, o);
+        if (lane == 0) part[ch * kVgWarps + warp] = s;
+      }
     }
-    const long long s = block_sum(acc);
-    if (threadIdx.x == 0) out[c] = __ll2float_rn(s);
+    if (groups == 0 && lane == 0)
+      for (int ch = 0; ch < cnt; ++ch) part[ch * kVgWarps + warp] = 0;
+    __syncthreads();
+    if (warp < cnt) {
+      unsigned long long s = part[warp * kVgWarps + lane];
+      for (int o = 16; o > 0; o >>= 1) s += __shfl_down_sync(0xffffffffu, s, o);
+      if (lane == 0)
+        out[blockIdx.x + (base + warp) * gridDim.x] =
+            __ll2float_rn(static_cast<long long>(s - bias));
+    }
+    if (base + slots < m) __syncthreads();   // part[] is read before reuse
   }
 }
 
@@ -280,9 +429,24 @@ extern "C" int ck_vgather(const void* tile, int32_t tile_rows, int32_t w,
                           void* out, void* stream) {
   if (n_chunks <= 0) return static_cast<int>(cudaGetLastError());
   const int32_t tile_ints = tile_rows * w;
-  const size_t smem = static_cast<size_t>(tile_ints) * 4;
+  // the tile, 8-B rounded, then as many rounds' partial sums as fit
+  const size_t tile_bytes = (static_cast<size_t>(tile_ints) * 4 + 7) & ~size_t{7};
+  int dev = 0, optin = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  const int64_t room =
+      (static_cast<int64_t>(optin) - static_cast<int64_t>(tile_bytes)) /
+      (kVgWarps * 8);
+  if (room < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const int32_t slots = static_cast<int32_t>(room < kVgMaxSlots ? room
+                                                                : kVgMaxSlots);
+  const size_t smem = tile_bytes + static_cast<size_t>(slots) * kVgWarps * 8;
+  // the experiment's 128-int rows with the width fixed at compile time
+  auto kern = w == 128    ? vgather_kernel<true, 128>
+              : w % 4 == 0 ? vgather_kernel<true, 0>
+                           : vgather_kernel<false, 0>;
   cudaError_t e = cudaFuncSetAttribute(
-      vgather_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (e != cudaSuccess) {
     cudaGetLastError();
@@ -291,10 +455,10 @@ extern "C" int ck_vgather(const void* tile, int32_t tile_rows, int32_t w,
   const int64_t sms = sm_count();
   const unsigned blocks =
       static_cast<unsigned>(n_chunks < sms ? n_chunks : sms);
-  vgather_kernel<<<blocks, kReduceThreads, smem,
-                   static_cast<cudaStream_t>(stream)>>>(
+  kern<<<blocks, kVgThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(tile), tile_ints,
-      static_cast<const int32_t*>(idx), n_chunks, chunk, w,
+      tile_ints % 4 == 0 && aligned16(tile),
+      static_cast<const int32_t*>(idx), n_chunks, chunk, w, slots,
       static_cast<float*>(out));
   return static_cast<int>(cudaGetLastError());
 }

@@ -32,11 +32,21 @@
 // back.  What holds both back on the card is latency: a window makes two
 // dependent trips to device memory (the lo plane, then the picks).
 //
-// probe_select's design: one warp per window.  The warp reads the lo
-// plane of row `hi` in chunks of 32 lanes (one int32 per lane, coalesced),
-// finds the match with __ballot_sync, and then reads only the picked
-// values.  wd > 32 loops over chunks.  At ~64 warps per SM that keeps
-// ~8,400 windows in flight on the card.
+// probe_select's design: a quarter-warp (8 lanes) per window and
+// kPsWindows windows per quarter-warp, all in flight together.  Lane s
+// reads ints c + 4s .. c + 4s + 3 of each window's row for c = 0, 32, ...
+// while c <= wd, so start (int 0) and the whole lo plane (ints 1..wd) come
+// in one 16-B load a lane where wd <= 31 and the rows are 16-B aligned
+// (four 4-B loads where not); a ballot within the quarter-warp finds the
+// matching slot and a shuffle hands start over from lane 0.  Then lanes
+// 0-3 read the fi, oi, avg_off and wt picks of all the windows in one
+// round, and lanes 0-5 store the six outputs, consecutive quarter-warps
+// on consecutive windows.  ~67,000 windows' rows are in flight on the
+// card, 8 times the warp-per-window design it replaced.  What is left is
+// device memory: up to ~5.6 bursts of 64 B per hit (two for start and the
+// lo plane at wd = 22, fi sharing the second when its slot is <= 8, then
+// oi, avg_off and wt, each in its own plane); windows of one row share
+// its first two.
 //
 // famwide_select's design: a quarter-warp (8 lanes) per window and
 // kFwWindows windows per quarter-warp, all in flight together: each lane
@@ -57,23 +67,30 @@
 
 namespace {
 
-constexpr int kWarpsPerBlock = 8;
+constexpr int kPsWindows = 2;              // windows per quarter-warp
+constexpr int kPsThreads = 256;
+constexpr int kPsGroups = kPsThreads / 8;   // quarter-warps per block
 
-// The matching slot of a row's lo plane (-1 when none): the first lane
-// whose (plane & mask) equals (q & mask).  Called by all 32 lanes.
-__device__ __forceinline__ int find_slot(const int32_t* plane, int32_t wd,
-                                         int32_t q, int32_t mask, int lane) {
-  const int32_t qm = q & mask;
-  for (int c = 0; c < wd; c += 32) {
-    const int j = c + lane;
-    const bool m = j < wd && (plane[j] & mask) == qm;
-    const unsigned ballot = __ballot_sync(0xffffffffu, m);
-    if (ballot) return c + __ffs(ballot) - 1;
+// Ints j0 .. j0 + 3 of a payload-wide row, j0 <= wd (4-B loads stop at
+// int wd, the lo plane's last).
+template <bool kVec>
+__device__ __forceinline__ void ps_load(const int32_t* row, int j0,
+                                        int32_t wd, int32_t (&x)[4]) {
+  if (kVec) {
+    // in the row: j0 and row_w are multiples of 4 and j0 <= wd < row_w
+    const int4 q = *reinterpret_cast<const int4*>(row + j0);
+    x[0] = q.x;
+    x[1] = q.y;
+    x[2] = q.z;
+    x[3] = q.w;
+  } else {
+#pragma unroll
+    for (int t = 0; t < 4; ++t) x[t] = j0 + t <= wd ? row[j0 + t] : 0;
   }
-  return -1;
 }
 
-__global__ void probe_select_kernel(
+template <bool kVec>
+__global__ void __launch_bounds__(kPsThreads) probe_select_kernel(
     const int32_t* __restrict__ hi, const int32_t* __restrict__ lo,
     const uint8_t* __restrict__ valid, const int32_t* __restrict__ rows,
     int64_t n_windows, int32_t n_rows, int32_t row_w, int32_t wd,
@@ -81,28 +98,89 @@ __global__ void probe_select_kernel(
     int32_t* __restrict__ oi, int32_t* __restrict__ avg_off,
     float* __restrict__ wt, int32_t* __restrict__ idx) {
   const int lane = threadIdx.x & 31;
-  const int64_t w =
-      static_cast<int64_t>(blockIdx.x) * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (w >= n_windows) return;  // uniform across the warp
-  const int32_t h = hi[w];
-  const bool ok = valid[w] != 0 && h >= 0 && h < n_rows;  // warp-uniform
-  const int32_t* row = rows + static_cast<int64_t>(ok ? h : 0) * row_w;
-  const int pos = ok ? find_slot(row + 1, wd, lo[w], -1, lane) : -1;
-  if (lane != 0) return;
-  if (pos >= 0) {
-    found[w] = 1;
-    fi[w] = row[1 + wd + pos];
-    oi[w] = row[1 + 2 * wd + pos];
-    avg_off[w] = row[1 + 3 * wd + pos];
-    wt[w] = __int_as_float(row[1 + 4 * wd + pos]);
-    idx[w] = row[0] + pos;
-  } else {
-    found[w] = 0;
-    fi[w] = -1;
-    oi[w] = -1;
-    avg_off[w] = 0;
-    wt[w] = 0.0f;
-    idx[w] = n_db;
+  const int sub = lane & 7;            // lane within the quarter-warp
+  const int first_lane = lane & ~7;    // its first lane in the warp
+  // window k of quarter-warp q: consecutive quarter-warps take
+  // consecutive windows, so the per-window loads and stores coalesce
+  const int64_t w0 = static_cast<int64_t>(blockIdx.x) * kPsGroups * kPsWindows
+                     + (threadIdx.x >> 3);
+  int64_t w[kPsWindows];
+  const int32_t* row[kPsWindows];
+  int32_t q[kPsWindows];
+  bool ok[kPsWindows];
+#pragma unroll
+  for (int k = 0; k < kPsWindows; ++k) {
+    w[k] = w0 + static_cast<int64_t>(k) * kPsGroups;
+    ok[k] = false;
+    q[k] = 0;
+    row[k] = rows;
+    if (w[k] < n_windows) {
+      const int32_t h = hi[w[k]];
+      ok[k] = valid[w[k]] != 0 && h >= 0 && h < n_rows;
+      q[k] = lo[w[k]];
+      if (ok[k]) row[k] = rows + static_cast<int64_t>(h) * row_w;
+    }
+  }
+  // 1. start and the lo plane (ints 0 .. wd) of every window, 32 ints a
+  // round, then the matches: lo slot s is int 1 + s
+  int pos[kPsWindows];
+  int32_t start[kPsWindows];
+#pragma unroll
+  for (int k = 0; k < kPsWindows; ++k) {
+    pos[k] = -1;
+    start[k] = 0;
+  }
+  for (int32_t c = 0; c <= wd; c += 32) {   // uniform: wd is the launch's
+    const int j0 = c + 4 * sub;
+    int slot[kPsWindows];
+    int32_t first[kPsWindows];
+#pragma unroll
+    for (int k = 0; k < kPsWindows; ++k) {
+      slot[k] = -1;
+      first[k] = 0;
+      if (ok[k] && pos[k] < 0 && j0 <= wd) {
+        int32_t x[4];
+        ps_load<kVec>(row[k], j0, wd, x);
+        first[k] = x[0];
+#pragma unroll
+        for (int t = 3; t >= 0; --t) {
+          const int j = j0 + t;
+          if (j >= 1 && j <= wd && x[t] == q[k]) slot[k] = j - 1;
+        }
+      }
+    }
+    bool more = false;
+#pragma unroll
+    for (int k = 0; k < kPsWindows; ++k) {
+      const unsigned hit =
+          (__ballot_sync(0xffffffffu, slot[k] >= 0) >> first_lane) & 0xffu;
+      const int p = __shfl_sync(0xffffffffu, slot[k],
+                                first_lane + (hit ? __ffs(hit) - 1 : 0));
+      if (c == 0) start[k] = __shfl_sync(0xffffffffu, first[k], first_lane);
+      if (hit && pos[k] < 0) pos[k] = p;
+      more |= ok[k] && pos[k] < 0;
+    }
+    if (!__any_sync(0xffffffffu, more)) break;   // uniform
+  }
+  // 2. the picks of every window together: lane p < 4 reads plane 1 + p
+  // (fi, oi, avg_off, wt bits) at the matched slot; then lanes 0-3 and 5
+  // store those and idx, lane 4 found
+  int32_t* const dst = sub == 0 ? fi : sub == 1 ? oi : sub == 2 ? avg_off
+                       : sub == 3 ? reinterpret_cast<int32_t*>(wt) : idx;
+  int32_t got[kPsWindows];
+#pragma unroll
+  for (int k = 0; k < kPsWindows; ++k)
+    got[k] = pos[k] >= 0 && sub < 4 ? row[k][1 + (sub + 1) * wd + pos[k]] : 0;
+#pragma unroll
+  for (int k = 0; k < kPsWindows; ++k) {
+    if (w[k] >= n_windows) continue;
+    const bool f = pos[k] >= 0;
+    if (sub == 4) {
+      found[w[k]] = f;
+    } else if (sub < 6) {
+      dst[w[k]] = f ? (sub < 4 ? got[k] : start[k] + pos[k])
+                    : (sub < 2 ? -1 : sub == 5 ? n_db : 0);
+    }
   }
 }
 
@@ -233,11 +311,6 @@ __global__ void __launch_bounds__(kFwThreads) famwide_select_kernel(
   }
 }
 
-unsigned blocks_for(int64_t n_windows) {
-  return static_cast<unsigned>((n_windows + kWarpsPerBlock - 1) /
-                               kWarpsPerBlock);
-}
-
 }  // namespace
 
 extern "C" int ck_probe_select(const void* hi, const void* lo,
@@ -247,8 +320,15 @@ extern "C" int ck_probe_select(const void* hi, const void* lo,
                                void* found, void* fi, void* oi, void* avg_off,
                                void* wt, void* idx, void* stream) {
   if (n_windows > 0) {
-    probe_select_kernel<<<blocks_for(n_windows), kWarpsPerBlock * 32, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
+    const unsigned blocks = static_cast<unsigned>(
+        (n_windows + kPsGroups * kPsWindows - 1) / (kPsGroups * kPsWindows));
+    // 16-B loads of start and the lo plane where every row starts 16-B
+    // aligned
+    const bool vec = reinterpret_cast<uintptr_t>(rows) % 16 == 0 &&
+                     row_w % 4 == 0;
+    auto kernel = vec ? probe_select_kernel<true>
+                      : probe_select_kernel<false>;
+    kernel<<<blocks, kPsThreads, 0, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const int32_t*>(hi), static_cast<const int32_t*>(lo),
         static_cast<const uint8_t*>(valid), static_cast<const int32_t*>(rows),
         n_windows, n_rows, row_w, wd, n_db, static_cast<uint8_t*>(found),

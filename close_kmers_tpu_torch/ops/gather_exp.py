@@ -31,9 +31,9 @@ import torch
 from . import _build
 
 # Largest [rows, 128] int32 tile that fits one block's shared memory on
-# Hopper (227 KB opt-in, 232,448 B) beside the kernel's 256 B of reduction
-# scratch: 448 rows = 229,376 B.  The TPU kernel held 2048 rows (1 MB of
-# VMEM).
+# Hopper (227 KB opt-in, 232,448 B) beside the kernel's partial sums (256 B
+# a chunk, one chunk at the least): 448 rows = 229,376 B, which leaves room
+# for 12 chunks a round.  The TPU kernel held 2048 rows (1 MB of VMEM).
 VGATHER_TILE_ROWS = 448
 DMA_DEPTHS = (1, 2, 4, 8, 16, 32)
 

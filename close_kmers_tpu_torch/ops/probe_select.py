@@ -9,10 +9,9 @@
   _score_family_jit``, which XLA ran on the TPU (no Pallas kernel).
 
 On a CUDA tensor each launches its entry of the hand-written kernel
-``csrc/probe_select.cu`` (a warp per window for the probe; a
-quarter-warp per window, four windows in flight each, for famwide); on
-a CPU tensor it runs its ``*_plain`` version, the same gather + masked
-sums in plain torch.
+``csrc/probe_select.cu`` (both a quarter-warp per window, two windows in
+flight each); on a CPU tensor it runs its ``*_plain`` version, the same
+gather + masked sums in plain torch.
 """
 
 from __future__ import annotations
@@ -89,22 +88,35 @@ def probe_select(hi, lo, valid, payload_wide, wd: int, n: int):
     dev = _check(hi, lo, valid, payload_wide, wd, 1 + 5 * wd)
     if dev.type == "cpu":
         return probe_select_plain(hi, lo, valid, payload_wide, wd, n)
-    N = hi.shape[0]
+    out = probe_outputs(hi.shape[0], dev)
+    _launch_probe(hi, lo, valid, payload_wide, wd, n, out)
+    probe_select.launches += 1
+    return out
+
+
+def probe_outputs(n: int, dev):
+    """Empty (found, fi, oi, avg_off, wt, idx) planes of ``n`` windows on
+    ``dev``."""
+    return (torch.empty(n, dtype=torch.bool, device=dev),
+            *(torch.empty(n, dtype=torch.int32, device=dev)
+              for _ in range(3)),
+            torch.empty(n, dtype=torch.float32, device=dev),
+            torch.empty(n, dtype=torch.int32, device=dev))
+
+
+def _launch_probe(hi, lo, valid, payload_wide, wd: int, n: int,
+                  out) -> None:
+    """``ck_probe_select`` into the preallocated ``out`` (the planes of
+    :func:`probe_outputs`); no checks, no count."""
+    dev = hi.device
     H, row_w = payload_wide.shape
-    found = torch.empty(N, dtype=torch.bool, device=dev)
-    fi, oi, avg_off, idx = (torch.empty(N, dtype=torch.int32, device=dev)
-                            for _ in range(4))
-    wt = torch.empty(N, dtype=torch.float32, device=dev)
     fn = _build.kernel("ck_probe_select", _ARGTYPES)
     with torch.cuda.device(dev):
         rc = fn(hi.data_ptr(), lo.data_ptr(), valid.data_ptr(),
-                payload_wide.data_ptr(), N, H, row_w, wd, n,
-                found.data_ptr(), fi.data_ptr(), oi.data_ptr(),
-                avg_off.data_ptr(), wt.data_ptr(), idx.data_ptr(),
+                payload_wide.data_ptr(), hi.shape[0], H, row_w, wd, n,
+                *(t.data_ptr() for t in out),
                 torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, "ck_probe_select")
-    probe_select.launches += 1
-    return found, fi, oi, avg_off, wt, idx
 
 
 probe_select.launches = 0

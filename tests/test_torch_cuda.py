@@ -63,11 +63,24 @@ def _random_table(rng, H, wd, row_w, n):
     return pw, lo, depth
 
 
-@pytest.mark.parametrize("wd", [1, 7, 32, 45])
-def test_probe_select_kernel_matches_plain(cuda, wd):
+def _probe_row_w(wd, aligned, lanes):
+    """A payload-wide row width: 1 + 5*wd rounded up to ``lanes`` ints
+    (rows 16-B aligned, the 16-B loads), or one past it and no multiple
+    of 4 (the 4-B loads)."""
+    if aligned:
+        return -(-(1 + 5 * wd) // lanes) * lanes
+    row_w = 2 + 5 * wd
+    return row_w if row_w % 4 else row_w + 1
+
+
+@pytest.mark.parametrize("wd", [1, 7, 22, 32, 45])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_probe_select_kernel_matches_plain(cuda, wd, aligned):
+    """The quarter-warp probe on rows 16-B aligned (row_w a multiple of 4:
+    the 16-B loads) and not (the 4-B loads)."""
     rng = np.random.default_rng(wd)
     H, N, n = 5000, 20000, 12345
-    row_w = 1 + 5 * wd + 3
+    row_w = _probe_row_w(wd, aligned, 4)
     pw, lo_plane, depth = _random_table(rng, H, wd, row_w, n)
     hi = rng.integers(0, H, size=N).astype(np.int32)
     lo = rng.integers(0, P.LO_CARD, size=N).astype(np.int32)
@@ -85,6 +98,66 @@ def test_probe_select_kernel_matches_plain(cuda, wd):
     assert want[0].sum() > N // 8
     for w, g in zip(want, got):
         assert torch.equal(bits(w), bits(g))
+
+
+@pytest.mark.parametrize("wd", [1, 22, 31, 32, 33, 45, 256])
+@pytest.mark.parametrize("n", [1, 127, 20479])
+@pytest.mark.parametrize("aligned", [True, False])
+def test_probe_select_windows_match_plain(cuda, wd, n, aligned):
+    """The quarter-warp probe at wd in one to nine 32-int rounds (start
+    and the lo plane are ints 0..wd, so wd = 31 fills one round and 32
+    spills into a second), at N of one window and one short of a
+    multiple of a block's 64 windows, on rows with and without 16-B
+    alignment, with hi negative, hi past the table and invalid windows;
+    hits on every slot, the first and the last among them."""
+    rng = np.random.default_rng(wd * 1000 + n)
+    H = 3000
+    row_w = _probe_row_w(wd, aligned, 128)
+    pw, lo_plane, depth = _random_table(rng, H, wd, row_w, 1 << 20)
+    depth[:2] = wd                                    # two full rows
+    for h in range(2):
+        lo_plane[h] = rng.choice(P.LO_CARD, size=wd, replace=False)
+    pw[:2, 1:1 + wd] = lo_plane[:2]
+    hi = rng.integers(0, H, size=n).astype(np.int32)
+    hi[rng.random(n) < 0.1] = rng.integers(0, 2)      # the full rows
+    lo = rng.integers(0, P.LO_CARD, size=n).astype(np.int32)
+    for i in np.nonzero((rng.random(n) < 0.6) & (depth[hi] > 0))[0]:
+        lo[i] = lo_plane[hi[i], rng.integers(0, depth[hi[i]])]
+    hi[rng.random(n) < 0.05] = H + 7                  # out of range
+    hi[rng.random(n) < 0.05] = -3
+    valid = rng.random(n) < 0.9
+    if n > 2:                        # row 0's first and last slot
+        hi[:2], lo[:2], valid[:2] = 0, lo_plane[0, [0, wd - 1]], True
+    args = [torch.from_numpy(x) for x in (hi, lo, valid, pw)]
+    want = probe_select_plain(*args, wd, 1 << 20)
+    got = probe_select(*(a.to(cuda) for a in args), wd, 1 << 20)
+    torch.cuda.synchronize()
+    if n > 1:
+        assert int(want[0].sum()) > n // 8
+    if n > 2:
+        assert bool(want[0][:2].all())
+    for w_, g in zip(want, got):
+        assert torch.equal(bits(w_), bits(g))
+
+
+@pytest.mark.parametrize("wd", [22, 45])
+def test_probe_select_invalid_windows_read_nothing(cuda, wd):
+    """Every window invalid, or valid with hi far outside the table: each
+    takes the miss values and reads no row (a read would fault)."""
+    rng = np.random.default_rng(wd)
+    H, n, n_db = 100, 4095, 777
+    pw, _, _ = _random_table(rng, H, wd, -(-(1 + 5 * wd) // 128) * 128, n_db)
+    pw_d = torch.from_numpy(pw).to(cuda)
+    lo = torch.zeros(n, dtype=torch.int32, device=cuda)
+    for hi, valid in ((torch.zeros(n, dtype=torch.int32), np.zeros(n, bool)),
+                      (torch.full((n,), 1 << 30, dtype=torch.int32),
+                       np.ones(n, bool))):
+        found, fi, oi, avg_off, wt, idx = probe_select(
+            hi.to(cuda), lo, torch.from_numpy(valid).to(cuda), pw_d, wd, n_db)
+        torch.cuda.synchronize()
+        assert not found.any()
+        assert (fi == -1).all() and (oi == -1).all() and (avg_off == 0).all()
+        assert (wt.view(torch.int32) == 0).all() and (idx == n_db).all()
 
 
 @pytest.mark.parametrize("p", SCAN_PARAMS)
@@ -504,14 +577,21 @@ def test_dma_gather_kernel_matches_plain(cuda, n, w, depth):
                                                  device=cuda))
 
 
-@pytest.mark.parametrize("rows,w,chunk,big", [
-    (gx.VGATHER_TILE_ROWS, 128, 2048, True), (100, 37, 96, False)])
-def test_vgather_kernel_matches_plain(cuda, rows, w, chunk, big):
-    rng = np.random.default_rng(rows)
+@pytest.mark.parametrize("rows,w,chunk,n_chunks,big", [
+    (gx.VGATHER_TILE_ROWS, 128, 2048, 300, True),  # the experiment's tile
+    (100, 37, 96, 300, False),     # 4-B reads; 3 of the 32 warps take ids
+    (gx.VGATHER_TILE_ROWS, 128, 100, 500, True),   # no whole 32-id groups
+    (gx.VGATHER_TILE_ROWS, 128, 2048, 1, True),    # one chunk in all
+    (gx.VGATHER_TILE_ROWS, 128, 2048, 131, True),  # fewer chunks than SMs
+    (gx.VGATHER_TILE_ROWS, 128, 2048, 4001, True),  # past one round a block
+    (200, 256, 3000, 40, True),    # two 16-B reads a lane per row
+    (64, 4, 33, 777, True)])       # a 16-B row, one lane reads it
+def test_vgather_kernel_matches_plain(cuda, rows, w, chunk, n_chunks, big):
+    rng = np.random.default_rng(rows * 7 + chunk + n_chunks)
     hi = (1 << 28) if big else 100
-    tile = torch.from_numpy(rng.integers(0, hi, size=(rows, w))
-                            .astype(np.int32))
-    idx = torch.from_numpy(rng.integers(0, rows, size=chunk * 300)
+    tile = torch.from_numpy(rng.integers(-hi if chunk == 33 else 0, hi,
+                                         size=(rows, w)).astype(np.int32))
+    idx = torch.from_numpy(rng.integers(0, rows, size=chunk * n_chunks)
                            .astype(np.int32))
     before = gx.vgather.launches
     got = gx.vgather(tile.to(cuda), idx.to(cuda), chunk)
@@ -519,6 +599,23 @@ def test_vgather_kernel_matches_plain(cuda, rows, w, chunk, big):
     assert gx.vgather.launches == before + 1
     assert torch.equal(gx.vgather_plain(tile, idx, chunk).view(torch.int32),
                        got.cpu().view(torch.int32))
+
+
+def test_vgather_extreme_values_match_plain(cuda):
+    """Rows of INT32_MIN and INT32_MAX: the biased adds wrap and carry at
+    every element, and the sum is still the exact one."""
+    tile = torch.tensor([[-(1 << 31)] * 128, [(1 << 31) - 1] * 128,
+                         [-1] * 128, [0] * 128], dtype=torch.int32)
+    rng = np.random.default_rng(4)
+    idx = torch.from_numpy(rng.integers(0, 4, size=2048 * 200)
+                           .astype(np.int32))
+    idx[:2048] = 0
+    idx[2048:4096] = 1
+    got = gx.vgather(tile.to(cuda), idx.to(cuda), 2048)
+    torch.cuda.synchronize()
+    want = gx.vgather_plain(tile, idx, 2048)
+    assert float(want[0]) == -(2.0 ** 31) * 128 * 2048
+    assert torch.equal(want.view(torch.int32), got.cpu().view(torch.int32))
 
 
 def test_vgather_refuses_a_tile_past_shared_memory(cuda):

@@ -18,7 +18,7 @@ from close_kmers_tpu_torch.ops.probe_select import probe_select
 
 from test_torch_host import as_jax_db
 
-WDS = [1, 7, 32]
+WDS = [1, 7, 22, 31, 32]
 
 
 def deep_bucket_db(rng, wd, n=3000):
