@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Smoke run of the torch port's /query, family and probe-gather paths on
-one NVIDIA card.
+"""Smoke run of the torch port's /query, family, genome, /matrix and
+probe-gather paths on one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -33,11 +33,20 @@ card, and exits 1 without one.
    ``torch.index_select``, and with a bad id, which must raise
    IndexError at its check and leave the context usable; scan_score
    also at B in {1, 33, 4096, 4097} x W in {1, 63, 64, 65, 304}, fresh,
-   chained and state-only.  Each kernel's record carries its bound (the
+   chained and state-only, and at the genome program's shape (W = 1,016,
+   B in {1, 9984}), chained and state-only.  The genome program's
+   kernels at its own inputs (phase 4's 5-Mbp genome): probe_select on
+   its 10,143,744 tile windows (timed as on the query cell), and
+   scan_score on its 9,984 x 1,016 scan inputs chained (init as the
+   fixpoint builds it, pos0, final_flush) with emit and state-only, each
+   timed as the path calls it and by launch alone, L2 flushed, with its
+   bound; probe_select also on one /matrix chunk's 2,048 x 304 windows.
+   Each kernel's record carries its bound (the
    bytes it must move over 3.35 TB/s; for vgather the longer of its
    shared-memory bytes over the SMs' bank rate and its 64-bit adds over
    their INT32 rate, both in the record) and, where one PyTorch call
-   computes the same function, that call's time.
+   computes the same function, that call's time; the genome and matrix
+   shapes sit in the records' ``genome`` and ``matrix`` fields.
    Tiers: the 20.5M-kmer DB of phase 4 built in each probe tier by
    ``DeviceDB.from_db`` flags (the six variants of
    tests/test_engine.py::test_probe_layout_parity), one table at a time;
@@ -45,8 +54,9 @@ card, and exits 1 without one.
    (ms per batch and peak memory printed).
 3. The golden server on the card: the port's kser context on
    tests/golden/data with device="cuda", and the version / query /
-   query_details / query_best / lookup / lookup_best / wadd / yfq /
-   zfq_gz conversations over a socket, byte for byte against
+   query_details / query_best / lookup / lookup_best / wadd / xmatrix
+   (/add then /matrix) / yfq / zfq_gz conversations over a socket, byte
+   for byte against
    tests/golden/*.resp; then a second context forced onto the device
    family program (device_family_min = 0), whose four /lookup modes and
    /fq_lookup must give the first context's bytes.
@@ -76,13 +86,29 @@ card, and exits 1 without one.
      auto-ladder puts on the sub_blocks tier; 65,536 proteins spelled
      from its kmers (37 kmers of one function each, so calls form)
      through the /query checks above.
+   * genome: a 5-Mbp genome by scripts/dna_bench.py's synth_genome (seed
+     4, the query proteins reverse-translated between 900-base random
+     stretches) through GenomeAnnotator.calls_of on the payload-wide DB:
+     Mbp/s (best of 5 passes), the fixpoint rounds and each kernel's
+     launches per genome, one pass profiled (wall, the card's busy time
+     and its top five kernels); all six frames' call lists equal to the
+     native CPU reference (translate.six_frame_kguts_offsets, searchsorted
+     hits, native.score_batch with 65,536 calls a frame).
+   * matrix: bench.py's matrix cell (P = 2,048 query proteins, a
+     degree-1-3 kmer->peg CSR over the DB from bench.py's seed stream,
+     rank over 2P, max_deg 3) through DeviceMatrix.count_pairs:
+     proteins/s (best of 5), one request profiled as the genome pass,
+     (pairs, shared hits) equal to native.matrix_hash, the first 256
+     proteins' exact pairs equal to a numpy replay of the registration
+     rule.
    * the probe-gather experiments: ``python -m
      close_kmers_tpu_torch.scripts.gather_exp`` with every experiment
      it runs, deepcmp on the deep DB (deep_sub equal to deep_bin on
      2.49M windows).
 5. All nine kernels' launch counters, reset just before phases 3-4, must
-   be above 0, and probe_select must have launched on the deep DB's
-   sub_blocks path.
+   be above 0; probe_select must have launched on the deep DB's
+   sub_blocks path, on the genome path (with scan_score) and on the
+   matrix path.
 
 The last lines are the kernels' JSON record, the nvidia-smi line and
 ``{"ok": true, "device": {...}}``.
@@ -115,6 +141,10 @@ SAMPLE = 4096
 N_READS = 20_000
 READ_LEN = 150
 READ_SAMPLE = 1000
+# bench.py bench_genome (BENCH_GENOME_MBP = 5) and bench_matrix
+GENOME_BASES = 5_000_000
+MATRIX_P = 2048
+MATRIX_PREFIX = 256      # proteins whose exact pairs the replay holds
 # tests/test_engine.py::test_probe_layout_parity's from_db variants
 TIER_VARIANTS = (
     ("binary_search", dict(wide=False, sub=False, wide_lo=False,
@@ -318,36 +348,39 @@ def scan_sweep(device) -> int:
     """scan_score against its plain version at B in {1, 33, 4096, 4097}
     and W in {1, 63, 64, 65, 304} (tile edges, no alignment): a fresh
     state, a chained tile (init, pos0, final_flush) and the state alone
-    (want_emit=False).  Returns the number of cases held."""
+    (want_emit=False); and at the genome program's shape, W = 1,016 with
+    B in {1, 9984}, chained and state-only.  Returns the number of cases
+    held."""
     import torch
     from close_kmers_tpu_torch.ops.scan_score import (scan_score,
                                                       scan_score_plain)
+    grid = [(B, W, 3) for B in (1, 33, 4096, 4097)
+            for W in (1, 63, 64, 65, 304)]
     n = 0
-    for B in (1, 33, 4096, 4097):
-        for W in (1, 63, 64, 65, 304):
-            rng = np.random.default_rng(B * 1000 + W)
-            x = [torch.from_numpy(v).to(device) for v in (
-                rng.random((B, W)) < 0.3,
-                rng.integers(0, 5, size=(B, W)).astype(np.int32),
-                rng.integers(0, 300, size=(B, W)).astype(np.int32),
-                rng.uniform(0.1, 3, size=(B, W)).astype(np.float32))]
-            p = SCAN_PARAMS[(B + W) % len(SCAN_PARAMS)]
-            _, _, carry = scan_score_plain(*x, *p, want_emit=False)
-            pos0 = torch.from_numpy(
-                rng.integers(0, 500, size=B).astype(np.int32)).to(device)
-            flush = torch.from_numpy(rng.random(B) < 0.5).to(device)
-            for kw in (dict(), dict(init=carry, pos0=pos0, final_flush=flush),
-                       dict(init=carry, pos0=pos0, want_emit=False)):
-                want = scan_score_plain(*x, *p, **kw)
-                got = scan_score(*x, *p, **kw)
-                torch.cuda.synchronize()
-                planes = [] if want[0] is None else [want[0], *want[1]]
-                got_planes = [] if got[0] is None else [got[0], *got[1]]
-                check(len(planes) == len(got_planes),
-                      f"scan_score B={B} W={W}: emit planes differ")
-                max_abs_err(planes + list(want[2].values()),
-                            got_planes + list(got[2].values()))
-                n += 1
+    for B, W, n_kw in grid + [(1, 1016, 2), (9984, 1016, 2)]:
+        rng = np.random.default_rng(B * 1000 + W)
+        x = [torch.from_numpy(v).to(device) for v in (
+            rng.random((B, W)) < 0.3,
+            rng.integers(0, 5, size=(B, W)).astype(np.int32),
+            rng.integers(0, 300, size=(B, W)).astype(np.int32),
+            rng.uniform(0.1, 3, size=(B, W)).astype(np.float32))]
+        p = SCAN_PARAMS[(B + W) % len(SCAN_PARAMS)]
+        _, _, carry = scan_score_plain(*x, *p, want_emit=False)
+        pos0 = torch.from_numpy(
+            rng.integers(0, 500, size=B).astype(np.int32)).to(device)
+        flush = torch.from_numpy(rng.random(B) < 0.5).to(device)
+        for kw in (dict(), dict(init=carry, pos0=pos0, final_flush=flush),
+                   dict(init=carry, pos0=pos0, want_emit=False))[-n_kw:]:
+            want = scan_score_plain(*x, *p, **kw)
+            got = scan_score(*x, *p, **kw)
+            torch.cuda.synchronize()
+            planes = [] if want[0] is None else [want[0], *want[1]]
+            got_planes = [] if got[0] is None else [got[0], *got[1]]
+            check(len(planes) == len(got_planes),
+                  f"scan_score B={B} W={W}: emit planes differ")
+            max_abs_err(planes + list(want[2].values()),
+                        got_planes + list(got[2].values()))
+            n += 1
     return n
 
 
@@ -949,7 +982,18 @@ def _post(path: bytes, body: bytes) -> bytes:
             % len(body) + body)
 
 
-# tests/test_golden.py CONVS, less xmatrix (/matrix is not ported)
+def _matrix_body(body: bytes) -> bytes:
+    """tests/test_golden.py _matrix_body: A = q1, B = q1[:60] + q2[60:],
+    C = q2, from the golden queries."""
+    import re
+    seqs = dict(re.findall(rb">(\S+)[^\n]*\n([A-Z\n]+)", body))
+    s1 = seqs[b"q1"].replace(b"\n", b"")
+    s2 = seqs[b"q2"].replace(b"\n", b"")
+    return (b">A\n" + s1 + b"\n>B\n" + s1[:60] + s2[60:] + b"\n>C\n"
+            + s2 + b"\n")
+
+
+# tests/test_golden.py CONVS: one request, or a list played in turn
 GOLDEN_CONVS = {
     "version": lambda body: b"GET /version HTTP/1.1\n\n",
     "query": lambda body:
@@ -964,6 +1008,9 @@ GOLDEN_CONVS = {
     "lookup_best": lambda body: _post(
         b"/lookup?find_best_match=1&target_genus=Escherichia", body),
     "wadd": lambda body: _post(b"/mapping/gold_add/add", body),
+    "xmatrix": lambda body: [
+        _post(b"/mapping/gold_m/add?silent=1", _matrix_body(body)),
+        _post(b"/mapping/gold_m/matrix", _matrix_body(body))],
     "yfq": lambda body: _post(b"/fq_lookup", _reads_body("reads.fq")),
     "zfq_gz": lambda body: _post(b"/fq_lookup", _reads_body("reads.fq.gz")),
 }
@@ -1034,7 +1081,9 @@ def phase_golden(device) -> None:
         for name, make in GOLDEN_CONVS.items():
             with open(os.path.join(GOLDEN, f"{name}.resp"), "rb") as f:
                 want = f.read()
-            got = _http(host.port, make(body))
+            reqs = make(body)
+            got = b"".join(_http(host.port, r) for r in (
+                [reqs] if isinstance(reqs, bytes) else reqs))
             check(got == want, f"golden conversation {name} differs:\n"
                   f"{got[:400]!r}")
             log(f"golden {name}: {len(got)} bytes identical")
@@ -1059,9 +1108,10 @@ def phase_golden(device) -> None:
             srv.close()
 
 
-def reference_calls(host, T, db, offsets, lengths, params):
+def reference_calls(host, T, db, offsets, lengths, params, max_calls=64):
     """Independent CPU reference for a sample: hits by a numpy
-    searchsorted over the DB keys, scored by native.score_batch."""
+    searchsorted over the DB keys, scored by native.score_batch (at most
+    ``max_calls`` calls a sequence)."""
     K = host.params.K
     B, L = offsets.shape
     W = L - K
@@ -1078,7 +1128,7 @@ def reference_calls(host, T, db, offsets, lengths, params):
     np.cumsum(np.bincount(bi, minlength=B), out=row_off[1:])
     return host.native.score_batch(p, db.fi[idx], db.oi[idx],
                                    db.avg_off[idx], db.wt[idx], row_off,
-                                   params, max_calls_per_seq=64)
+                                   params, max_calls_per_seq=max_calls)
 
 
 def phase_family(TF, eng, mapping, offsets, lengths, params, device):
@@ -1213,6 +1263,278 @@ def phase_reads(eng, mapping, reads, n_orfs, params):
     return N_READS / dt, n_orfs / dt
 
 
+def synth_genome(rng, src_off: np.ndarray, n_bases: int) -> str:
+    """scripts/dna_bench.py synth_genome: reverse-translated source
+    proteins alternating with 900 bases of random DNA."""
+    parts = []
+    total = 0
+    i = 0
+    bases = np.array(list("ACGT"))
+    while total < n_bases:
+        if i % 2 == 0:
+            prot = src_off[rng.integers(0, len(src_off))]
+            dna = "".join(CODON[o] for o in prot)
+        else:
+            dna = "".join(rng.choice(bases, size=900))
+        parts.append(dna)
+        total += len(dna)
+        i += 1
+    return "".join(parts)[:n_bases]
+
+
+def scan_record(S, sargs, init, pos0, final_flush, flush) -> dict:
+    """scan_score held against its plain version on the genome program's
+    scan inputs (``sargs``), chained from ``init`` with emit and
+    ``final_flush``, and the state alone; each timed as the path calls
+    it (the wrapper) and by launch alone, L2 flushed, with its bound."""
+    import torch
+    found, fi, av, wt = sargs[:4]
+    rec = {}
+    for mode, kw in (("emit", dict(want_emit=True, final_flush=final_flush)),
+                     ("state_only", dict(want_emit=False))):
+        got = S.scan_score(*sargs, init=init, pos0=pos0, **kw)
+        torch.cuda.synchronize()
+        want = S.scan_score_plain(*sargs, init=init, pos0=pos0, **kw)
+        torch.cuda.synchronize()
+        planes = [] if want[0] is None else [want[0], *want[1]]
+        got_planes = [] if got[0] is None else [got[0], *got[1]]
+        check(len(planes) == len(got_planes), f"scan {mode}: planes differ")
+        err = max_abs_err(planes + list(want[2].values()),
+                          got_planes + list(got[2].values()))
+        if mode == "emit":
+            check(int(want[0].sum()) > 0, "the genome scan emitted no calls")
+        largs = (*S._prepare(found, fi, av, wt, init, pos0, kw["want_emit"],
+                             kw.get("final_flush")), *sargs[4:])
+        ins = nbytes(found, fi, av, wt, pos0, *init.values())
+        if final_flush is not None and mode == "emit":
+            ins += nbytes(final_flush)
+        rec[mode] = dict(
+            max_abs_err=err,
+            ms=cuda_ms_cold(lambda: S.scan_score(*sargs, init=init, pos0=pos0,
+                                                 **kw), 10, flush),
+            launch_ms=cuda_ms_cold(lambda: S._launch(*largs), 10, flush),
+            plain_ms=cuda_ms(lambda: S.scan_score_plain(
+                *sargs, init=init, pos0=pos0, **kw), 1),
+            **bound(ins + nbytes(*planes, *got[2].values())))
+    return rec
+
+
+def phase_genome_kernels(T, TG, S, ddb, digits, n_true, params, flush):
+    """Phase 2, genome: probe_select on the 5-Mbp genome's tile windows
+    and scan_score on its scan inputs (9,984 rows x 1,016 windows),
+    chained and state-only, each against its plain version.  Returns the
+    two records' ``genome`` fields."""
+    import torch
+    tiles, tlens, pos0, t_of, n_t = TG._genome_tiles(digits, n_true)
+    hi, lo, valid = T.encode_windows(tiles, tlens)
+    flat = (hi.reshape(-1), lo.reshape(-1), valid.reshape(-1))
+    got, probe = time_probe(flat, ddb.payload_wide, ddb.wide_w, ddb.n, flush,
+                            "the genome's windows")
+    found, fi, _oi, av, wt, _idx = (x.reshape(hi.shape) for x in got)
+    sargs = (found, fi, av, wt, params.min_hits, params.min_weighted_hits,
+             params.max_gap, params.order_constraint)
+    # a chained init as the fixpoint builds one: each row takes the
+    # previous row's final state (rows of one [13, B] int32 buffer)
+    _, _, fin = S.scan_score(*sargs, pos0=pos0, want_emit=False)
+    init = TG._state_of(torch.roll(TG._packed_state(fin), 1, dims=1))
+    scan = scan_record(S, sargs, init, pos0, t_of == n_t - 1, flush)
+    scan.update(B=hi.shape[0], W=hi.shape[1])
+    e, so = scan["emit"], scan["state_only"]
+    log(f"scan_score at the genome's shape: B={hi.shape[0]} W={hi.shape[1]}:"
+        f" with emit {e['ms']:.4f} ms as called, {e['launch_ms']:.4f} ms "
+        f"launch alone, bound {e['bound_ms']:.4f} ms, plain "
+        f"{e['plain_ms']:.1f} ms; state only {so['ms']:.4f} ms as called, "
+        f"{so['launch_ms']:.4f} ms launch alone, bound {so['bound_ms']:.4f} "
+        f"ms, plain {so['plain_ms']:.1f} ms (L2 flushed); equal to the plain "
+        f"version, chained and state-only")
+    return probe, scan
+
+
+def device_share(fn) -> dict:
+    """One call of ``fn`` under torch.profiler: its wall ms, the card's
+    busy ms (the summed device intervals of its kernels and copies, one
+    stream) and the five names that took most of it.  ``busy_ms`` is
+    None where the trace holds no device event."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.time() - t0) * 1e3
+    by_name: dict[str, float] = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) \
+                + e.time_range.elapsed_us() / 1e3
+    busy = sum(by_name.values()) if by_name else None
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    return dict(wall_ms=wall, busy_ms=busy,
+                top=[(name[:60], ms) for name, ms in top])
+
+
+def phase_genome(host, T, TG, eng, db, genome: str, params) -> dict:
+    """Phase 4, genome: the 5-Mbp genome through GenomeAnnotator.calls_of
+    (best of passes, Mbp/s), its fixpoint rounds and kernel launches per
+    genome, and all six frames' call lists against the native CPU
+    reference over translate.six_frame_kguts_offsets."""
+    import torch
+    from close_kmers_tpu_torch.ops.probe_select import probe_select
+    from close_kmers_tpu_torch.ops.scan_score import scan_score
+    tr = host.translate
+    digits = tr._DNA_CHAR[tr._to_bytes(genome)]   # parsed once, as a server
+    ga = TG.GenomeAnnotator(eng)
+    ga.calls_of(digits, params)                                 # warm-up
+    before = (probe_select.launches, scan_score.launches)
+    per_frame, frames = ga.calls_of(digits, params)
+    per_genome = (probe_select.launches - before[0],
+                  scan_score.launches - before[1])
+    _, rounds, n_t = ga.dispatch(digits, params)
+    passes = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        ga.calls_of(digits, params)
+        passes.append(time.time() - t0)
+    best = min(passes)
+    n_calls = int(per_frame.sum())
+    log(f"phase 4: genome: {len(genome):,} bp, T={n_t} tiles a frame, "
+        f"{rounds} fixpoint rounds, {n_calls} calls; launches per genome: "
+        f"probe_select {per_genome[0]}, scan_score {per_genome[1]}; passes "
+        f"{passes} s; best {best:.4f} s = "
+        f"{len(genome) / best / 1e6:.2f} Mbp/s")
+    check(n_calls > 1000, f"only {n_calls} calls in the genome")
+    check(min(per_genome) > 0, "the genome path launched no kernel")
+    prof = device_share(lambda: ga.calls_of(digits, params))
+    log(f"phase 4: genome: one pass profiled: {prof}")
+
+    t0 = time.time()
+    fr = tr.six_frame_kguts_offsets(genome)
+    L = max(len(p) for _s, _o, p in fr)
+    fr_off = np.full((6, -(-(L + 1) // 8) * 8), 20, dtype=np.uint8)
+    fr_len = np.zeros(6, dtype=np.int32)
+    for i, (_s, _o, p) in enumerate(fr):
+        fr_off[i, :len(p)] = p
+        fr_len[i] = len(p)
+    n_ref, cs, ce, cc, cf, cw, _ = reference_calls(
+        host, T, db, fr_off, fr_len, params, max_calls=65536)
+    check(np.array_equal(n_ref, per_frame),
+          f"per-frame call counts {per_frame} differ from the reference "
+          f"{n_ref}")
+    for f in range(6):
+        want = [(int(cs[f, i]), int(ce[f, i]), int(cc[f, i]), int(cf[f, i]),
+                 int(np.float32(cw[f, i]).view(np.int32)))
+                for i in range(int(n_ref[f]))]
+        got = [c[:4] + (int(np.float32(c[4]).view(np.int32)),)
+               for c in frames[f]]
+        check(got == want,
+              f"genome frame {f}: calls differ from the reference")
+    log(f"phase 4: genome: all six frames' {n_calls} calls equal the native "
+        f"CPU reference (searchsorted hits + native.score_batch, "
+        f"{time.time() - t0:.1f} s)")
+    return dict(mbp_s=len(genome) / best / 1e6, rounds=rounds,
+                launches=per_genome, calls=n_calls, profile=prof)
+
+
+def matrix_csr(db, rng):
+    """bench.py bench_matrix's kmer->peg CSR: degree 1-3 over the DB's
+    rows, peg ids in [0, 2P) from each kmer's function, rank = id for the
+    first P pegs (the matrix proteins, in row order)."""
+    n = len(db)
+    deg = rng.integers(1, 4, size=n)
+    offs = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(deg, out=offs[1:])
+    vals = ((np.repeat(db.fi.astype(np.int64) * 3, deg)
+             + (np.arange(offs[-1]) % 3)) % (2 * MATRIX_P)).astype(np.int64)
+    rank = np.full(2 * MATRIX_P, 1 << 20, dtype=np.int64)
+    rank[:MATRIX_P] = np.arange(MATRIX_P)
+    return offs, vals, rank
+
+
+def replay_pairs(db, offsets, lengths, offs, vals, rank) -> dict:
+    """The registration rule in numpy: each hit kmer of protein s counts
+    every peg o of its CSR list with rank[o] < s (matrix_request.cc:
+    130-161).  Independent of the device program and of the port."""
+    K = 8
+    B, L = offsets.shape
+    W = L - K
+    ok = np.arange(W)[None, :] < lengths[:, None] - K
+    bad = offsets >= 20
+    for j in range(K):
+        ok &= ~bad[:, j:j + W]
+    bi, pos = np.nonzero(ok)
+    codes = np.zeros(len(pos), dtype=np.int64)
+    for j in range(K):
+        codes = codes * 20 + offsets[bi, pos + j]
+    row = np.minimum(np.searchsorted(db.keys, codes), len(db) - 1)
+    hit = db.keys[row] == codes
+    bi, row = bi[hit], row[hit]
+    deg = offs[row + 1] - offs[row]
+    s = np.repeat(bi, deg)
+    start = np.repeat(offs[row] - np.concatenate([[0], np.cumsum(deg)[:-1]]),
+                      deg)
+    o = vals[start + np.arange(int(deg.sum()))]
+    keep = rank[o] < s
+    key = s[keep] << 15 | rank[o[keep]]
+    k, c = np.unique(key, return_counts=True)
+    return {(int(a >> 15), int(a & 0x7FFF)): int(n) for a, n in zip(k, c)}
+
+
+def phase_matrix(host, TM, eng, db, offsets, lengths, rng) -> dict:
+    """Phase 4, matrix: bench.py's matrix cell (P = 2,048 query proteins,
+    the degree-1-3 CSR, rank over 2P, max_deg 3) through
+    DeviceMatrix.count_pairs (best of passes, proteins/s), held against
+    native.matrix_hash and, on a prefix, the numpy replay."""
+    import torch
+    from close_kmers_tpu_torch.ops.probe_select import probe_select
+    t0 = time.time()
+    offs, vals, rank = matrix_csr(db, rng)
+    off_m, len_m = offsets[:MATRIX_P], lengths[:MATRIX_P]
+    dm = TM.DeviceMatrix(eng, max_deg=3)
+    po, pv = dm.stage_csr(offs, vals)
+    torch.cuda.synchronize()
+    log(f"set-up: matrix CSR of {len(vals):,} pegs built and staged in "
+        f"{time.time() - t0:.1f} s")
+    dm.count_pairs(off_m, len_m, po, pv, rank)                  # warm-up
+    before = probe_select.launches
+    pairs = dm.count_pairs(off_m, len_m, po, pv, rank)
+    launches = probe_select.launches - before
+    passes = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        dm.count_pairs(off_m, len_m, po, pv, rank)
+        passes.append(time.time() - t0)
+    best = min(passes)
+    shared = sum(pairs.values())
+    log(f"phase 4: matrix: {MATRIX_P} proteins, {len(pairs)} pairs, {shared} "
+        f"shared kmer-peg hits; probe_select launches {launches}; passes "
+        f"{passes} s; best {best:.4f} s = {MATRIX_P / best:.0f} proteins/s")
+    check(launches > 0, "the matrix path launched no probe_select")
+    prof = device_share(lambda: dm.count_pairs(off_m, len_m, po, pv, rank))
+    log(f"phase 4: matrix: one request profiled: {prof}")
+    t0 = time.time()
+    hp = host.native.HashPipeline(db)
+    pm = host.native.PegMapRef(db.keys, offs, vals)
+    got_c = host.native.matrix_hash(hp, pm, off_m, len_m)
+    check(got_c == (len(pairs), shared),
+          f"matrix_hash gives {got_c}, the device {(len(pairs), shared)}")
+    want = replay_pairs(db, off_m[:MATRIX_PREFIX], len_m[:MATRIX_PREFIX],
+                        offs, vals, rank)
+    got = {k: v for k, v in pairs.items() if k[0] < MATRIX_PREFIX}
+    check(got == want and len(want) > 0,
+          f"the first {MATRIX_PREFIX} proteins' pairs differ from the replay")
+    log(f"phase 4: matrix equals native.matrix_hash ({got_c[0]} pairs, "
+        f"{got_c[1]} shared) and the numpy replay of the first "
+        f"{MATRIX_PREFIX} proteins ({len(want)} pairs), "
+        f"{time.time() - t0:.1f} s")
+    return dict(proteins_s=MATRIX_P / best, launches=launches,
+                pairs=len(pairs), profile=prof)
+
+
 def main() -> int:
     try:
         import torch
@@ -1231,6 +1553,9 @@ def main() -> int:
         from close_kmers_tpu_torch.ops import encoder, translate
         from close_kmers_tpu_torch.core import device_family as TF
         from close_kmers_tpu_torch.core import engine as T
+        from close_kmers_tpu_torch.core import genome as TG
+        from close_kmers_tpu_torch.core import matrix as TM
+        from close_kmers_tpu_torch.ops import scan_score as S
         from close_kmers_tpu_torch.core.api import KmerEngine
         from close_kmers_tpu_torch.core.device_score import DeviceScorer
         from close_kmers_tpu_torch.ops import _build
@@ -1312,6 +1637,12 @@ def main() -> int:
         f"{tuple(ds_deep.ddb.sub_header.shape)}, blocks "
         f"{tuple(ds_deep.ddb.sub_blocks.shape)}, sub_w {ds_deep.ddb.sub_w}) "
         f"built and uploaded in {time.time() - t0:.1f} s")
+    t0 = time.time()
+    genome = synth_genome(np.random.default_rng(4), offsets[:, :PROT_LEN],
+                          GENOME_BASES)
+    g_digits, g_n = TG.bucketed_digits(genome)
+    log(f"set-up: genome of {len(genome):,} bp (scripts/dna_bench.py "
+        f"synth_genome, seed 4) in {time.time() - t0:.1f} s")
 
     # -- phase 2: kernels against their plain versions, tiers against the
     # payload-wide probe
@@ -1325,6 +1656,18 @@ def main() -> int:
     kernels["probe_select"]["sub_blocks"] = phase_sub_select(
         T, ds_deep.ddb, torch.from_numpy(d_off[:BATCH]).to(device),
         torch.from_numpy(d_len[:BATCH]).to(device), flush)
+    kernels["probe_select"]["genome"], kernels["scan_score"]["genome"] = \
+        phase_genome_kernels(T, TG, S, eng.fa.ddb,
+                             torch.from_numpy(g_digits).to(device), g_n,
+                             params, flush)
+    m_hi, m_lo, m_valid = T.encode_windows(
+        torch.from_numpy(offsets[:MATRIX_P]).to(device),
+        torch.from_numpy(lengths[:MATRIX_P]).to(device))
+    kernels["probe_select"]["matrix"] = time_probe(
+        (m_hi.reshape(-1), m_lo.reshape(-1), m_valid.reshape(-1)),
+        eng.fa.ddb.payload_wide, eng.fa.ddb.wide_w, eng.fa.ddb.n, flush,
+        "one matrix chunk's windows")[1]
+    del m_hi, m_lo, m_valid
     del flush
     kernels.update(phase_gather_kernels(device))
     log(f"phase 2: all {len(kernels)} kernels equal their plain versions")
@@ -1346,6 +1689,8 @@ def main() -> int:
     rate_fam, _spent = phase_family(TF, eng, mapping, offsets, lengths,
                                     params, device)
     rate_reads, rate_orfs = phase_reads(eng, mapping, reads, n_orfs, params)
+    gen = phase_genome(host, T, TG, eng, db, genome, params)
+    mat = phase_matrix(host, TM, eng, db, offsets, lengths, src_rng)
     before = probe_select.launches
     rate_deep, rate_deep_eng = phase_query(host, T, ds_deep, eng_deep,
                                            db_deep, d_off, d_len, params,
@@ -1361,15 +1706,22 @@ def main() -> int:
     # -- phase 5: the main path went through every kernel
     launches = {name: fn.launches for name, fn in wrappers.items()}
     log(f"phase 5: launches on the main path: {launches}; probe_select on "
-        f"the deep DB's sub_blocks path: {sub_launches}")
+        f"the deep DB's sub_blocks path: {sub_launches}; on the genome path "
+        f"(one genome) probe_select {gen['launches'][0]}, scan_score "
+        f"{gen['launches'][1]}; on the matrix path (one request) "
+        f"probe_select {mat['launches']}")
     for name, n in launches.items():
         check(n > 0, f"{name} was never launched on the main path")
     check(sub_launches > 0, "probe_select never ran on the sub_blocks path")
+    check(min(gen["launches"]) > 0 and mat["launches"] > 0,
+          "the genome or matrix path missed a kernel")
     log(f"all phases passed in {time.time() - t_start:.1f} s; "
         f"DeviceScorer {rate_ds:.0f} proteins/s, KmerEngine {rate_eng:.0f} "
         f"proteins/s, family best-match {rate_fam:.0f} proteins/s, "
         f"/fq_lookup {rate_reads:.0f} reads/s ({rate_orfs:.0f} ORF "
-        f"proteins/s), deep DB (sub_blocks) DeviceScorer {rate_deep:.0f} / "
+        f"proteins/s), genome {gen['mbp_s']:.2f} Mbp/s ({gen['rounds']} "
+        f"fixpoint rounds), matrix {mat['proteins_s']:.0f} proteins/s, "
+        f"deep DB (sub_blocks) DeviceScorer {rate_deep:.0f} / "
         f"KmerEngine {rate_deep_eng:.0f} proteins/s, deep_sub "
         f"{exp['deep_sub'] * 1e3:.4f} ms / deep_bin "
         f"{exp['deep_bin'] * 1e3:.4f} ms per {GX.N_IDX} windows, tier probes "

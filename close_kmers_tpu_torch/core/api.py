@@ -9,10 +9,12 @@ Ported: ``AnnotationResult``, ``KmerEngine.annotate`` and
 arrays are now a required argument: the port keeps no ``_last_hits``).
 ``mesh=`` raises ``NotImplementedError`` until ``parallel/`` is ported.
 
-Two deliberate differences from the reference: the engine caches its
+Three deliberate differences from the reference: the engine caches its
 family scorer per mapping in a weak-keyed table of its own, never as
 ``mapping._device_scorer`` (which the JAX engine writes), so engines of
-both packages may share a mapping; and ``best_family_matches_padded``
+both packages may share a mapping; it keeps its /matrix DeviceMatrix the
+same way (``_device_matrix``), never as ``eng._device_matrix``; and
+``best_family_matches_padded``
 keeps at most ``FAMILY_MATCH_GROUP`` chunks in flight, where the
 reference dispatches every chunk of a request up front (ADVICE.md,
 medium: unbounded dispatch-ahead).
@@ -34,6 +36,7 @@ from . import family as F, oracle as O
 from .device_family import DeviceFamilyScorer
 from .device_score import DeviceScorer
 from .engine import FastAnnotator, finish_best_call
+from .matrix import DeviceMatrix
 
 
 class AnnotationResult:
@@ -89,6 +92,8 @@ class KmerEngine:
                 "CLOSE_KMERS_DEVICE_FAMILY_MIN", 50_000))
         # mapping -> (the fam CSR it was built from, scorer or None)
         self._family_scorers = weakref.WeakKeyDictionary()
+        # mapping -> its /matrix DeviceMatrix (core/matrix.py)
+        self._device_matrices = weakref.WeakKeyDictionary()
 
     def annotate(self, items: list[tuple[str, str]],
                  params: EngineParams | None = None,
@@ -410,6 +415,15 @@ class KmerEngine:
         if not as_arrays:
             return [m for chunk in outs for m in chunk]
         return F.BestMatchColumns.concat(outs)
+
+    def _device_matrix(self, mapping) -> DeviceMatrix:
+        """The /matrix DeviceMatrix of ``mapping``, one per mapping and
+        engine; it caches the mapping's staged peg CSR
+        (:meth:`DeviceMatrix.mapping_csr`)."""
+        dm = self._device_matrices.get(mapping)
+        if dm is None:
+            dm = self._device_matrices[mapping] = DeviceMatrix(self)
+        return dm
 
     def family_scores_batch(self, mapping, h: dict) -> tuple:
         """Per-sequence family score accumulation against ``mapping``'s

@@ -3,9 +3,10 @@ the gather_hits run/gap/two-hit state machine fused with the probe, and
 compaction of the emitted CALLs into one packed int32 buffer.
 
 Ported: ``neutral_scan_state``, ``_scan_score_core`` (whose loop is the
-``scan_score`` kernel), ``probe_score`` (the counterpart of
-``_probe_score_jit``, with the slim 0/2/3 packs of ``compact_calls``,
-which the family program shares) and ``DeviceScorer``
+``scan_score`` kernel; the genome program chains it over tiles),
+``probe_score`` (the counterpart of ``_probe_score_jit``, with the slim
+0/2/3 packs of ``compact_calls``, which the family and genome programs
+share) and ``DeviceScorer``
 (``score_batch``, ``score_batch_packed``, ``slim_mode`` and the
 unpackers).  ``_best_call_device`` / ``_probe_best_jit`` /
 ``best_calls_batch`` are not ported yet, nor are the packed-upload

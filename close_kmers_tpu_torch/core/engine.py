@@ -3,7 +3,8 @@ window encode -> two-level probe -> on-device hit compaction.
 
 Ported: ``DeviceDB`` with every probe tier of the JAX package and its
 auto-ladder (``from_db`` builds the same numpy tables; ``from_numpy``
-carries a JAX ``DeviceDB``'s state across), ``encode_windows`` in its
+carries a JAX ``DeviceDB``'s state across; ``device_db_of`` picks the
+table of the genome and matrix programs), ``encode_windows`` in its
 integer log-tree form, ``probe_windows`` (all five tiers),
 ``FastAnnotator`` (``pad_batch``, ``probe_compact``) and
 ``finish_best_call``.
@@ -292,6 +293,16 @@ class DeviceDB:
                    n=int(fields["n"]), n_steps=int(fields["n_steps"]),
                    **{w: int(fields.get(w, 0))
                       for w in ("wide_w", "sub_w", "fused_w")})
+
+
+def device_db_of(source, device) -> DeviceDB:
+    """The table a device program built from ``source`` probes (the
+    genome and matrix programs): an engine's ``fa.ddb``, the ``ddb`` of
+    a DeviceScorer or FastAnnotator, or, from a SignatureDB, one built
+    and uploaded to ``device``."""
+    fa = getattr(source, "fa", None)
+    ddb = fa.ddb if fa is not None else getattr(source, "ddb", None)
+    return ddb if ddb is not None else DeviceDB.from_db(source, device)
 
 
 def encode_windows(offsets: torch.Tensor, lengths: torch.Tensor):

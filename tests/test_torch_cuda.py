@@ -17,6 +17,8 @@ from close_kmers_tpu_torch.core.device_family import DeviceFamilyScorer
 from close_kmers_tpu_torch.core.device_score import DeviceScorer
 from close_kmers_tpu_torch.core.engine import (DeviceDB, FastAnnotator,
                                                encode_windows, probe_windows)
+from close_kmers_tpu_torch.core import genome as G
+from close_kmers_tpu_torch.core import matrix as M
 from close_kmers_tpu_torch import params as P
 from close_kmers_tpu_torch.db import family_db
 from close_kmers_tpu_torch.db.signature_db import SignatureDB
@@ -234,6 +236,37 @@ def test_scan_kernel_shapes_match_plain(cuda, B, W):
             assert got[0].shape == (B, W + 1)
             assert all(f.shape == (B, W + 1) for f in got[1])
     assert scan_score.launches == before + 3
+
+
+@pytest.mark.parametrize("B", [1, 9984])
+def test_scan_kernel_genome_shape_matches_plain(cuda, B):
+    """The genome program's scan: W = STEP = 1,016 windows a tile row, B
+    up to 9,984 rows (a 5-Mbp genome), chained from an init built as the
+    fixpoint builds it (rows of one [13, B] int32 buffer gathered by row,
+    the f32 fields as views), with emit and final_flush, and the state
+    alone."""
+    rng = np.random.default_rng(B + 1016)
+    W = G.STEP
+    x = _scan_inputs(rng, B, W)
+    for p in (SCAN_PARAMS[0], SCAN_PARAMS[3]):
+        _, _, carry = scan_score_plain(*x, *p, want_emit=False)
+        perm = torch.from_numpy(rng.permutation(B))
+        packed = G._packed_state(carry)[:, perm]
+        pos0 = torch.from_numpy((rng.integers(0, 9, size=B) * W)
+                                .astype(np.int32))
+        flush = torch.from_numpy(rng.random(B) < 0.2)
+        for emit in (True, False):
+            kw = dict(pos0=pos0, want_emit=emit,
+                      final_flush=flush if emit else None)
+            want = scan_score_plain(*x, *p, init=G._state_of(packed), **kw)
+            got = scan_score(*(t.to(cuda) for t in x), *p,
+                             init=G._state_of(packed.to(cuda)),
+                             **{k: v.to(cuda) if torch.is_tensor(v) else v
+                                for k, v in kw.items()})
+            torch.cuda.synchronize()
+            _assert_scan_equal(want, got)
+            if emit and B > 1:
+                assert want[0].sum() > 0
 
 
 def test_scan_kernel_takes_misaligned_and_strided_inputs(cuda):
@@ -685,3 +718,74 @@ def test_tiers_on_card_match_cpu(cuda):
             dg.tier in ("payload_wide", "sub_blocks")), dg.tier
         for w_, g in zip(base, got):
             assert torch.equal(bits(w_), bits(g)), dg.tier
+
+
+# scripts/dna_bench.py CODON: one codon per amino acid, index = aa offset
+CODON = ["GCG", "TGC", "GAT", "GAA", "TTT", "GGT", "CAT", "ATT", "AAA",
+         "CTG", "ATG", "AAC", "CCG", "CAG", "CGT", "AGC", "ACC", "GTT",
+         "TGG", "TAT"]
+
+
+def test_genome_on_card_matches_cpu(cuda):
+    """GenomeAnnotator on the card gives the CPU port's packed buffer and
+    round count (a genome of ~4 tiles a frame: reverse-translated DB
+    proteins between random DNA), through both kernels."""
+    rng = np.random.default_rng(3)
+    db, prots = _db(rng)
+    parts = []
+    while sum(map(len, parts)) < 4 * 3 * G.STEP:
+        parts.append("".join(CODON[o] for o in prots[rng.integers(0, 20)]))
+        parts.append("".join(rng.choice(list("ACGT"),
+                                        size=int(rng.integers(0, 900)))))
+    dna = "".join(parts)
+    ga_g, ga_c = G.GenomeAnnotator(db, cuda), G.GenomeAnnotator(db, "cpu")
+    before = (probe_select.launches, scan_score.launches)
+    for params in (EngineParams(), EngineParams(min_hits=2, max_gap=50,
+                                                order_constraint=1)):
+        out_g, it_g, T = ga_g.dispatch(dna, params)
+        out_c, it_c, _ = ga_c.dispatch(dna, params)
+        assert np.array_equal(out_g.cpu().numpy(), out_c.numpy())
+        assert it_g == it_c and out_c[:6 * T].sum() > 5
+    assert probe_select.launches > before[0]
+    assert scan_score.launches >= before[1] + 2 * (it_c + 1)
+
+
+def test_matrix_on_card_matches_cpu(cuda):
+    """DeviceMatrix on the card gives the CPU port's pairs, chunked with a
+    padded tail and through the x4 cap retry, and one chunk's packed
+    buffer word for word, through probe_select."""
+    rng = np.random.default_rng(4)
+    db, prots = _db(rng)
+    n, P = len(db), 300
+    deg = rng.integers(1, 4, size=n)
+    peg_offs = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(deg, out=peg_offs[1:])
+    peg_vals = rng.integers(0, 2 * P, size=int(peg_offs[-1]))
+    rank = np.full(2 * P, 1 << 20, dtype=np.int64)
+    rank[:P] = np.arange(P)
+    offsets = np.full((P, 128), 20, np.uint8)
+    lengths = rng.integers(20, 120, size=P).astype(np.int32)
+    for b in range(P):
+        offsets[b, :lengths[b]] = prots[rng.integers(0, 20), :lengths[b]]
+    dm_g = M.DeviceMatrix(db, max_deg=3, device=cuda)
+    dm_c = M.DeviceMatrix(db, max_deg=3, device="cpu")
+    dm_g.CHUNK = dm_c.CHUNK = 128
+    before = probe_select.launches
+    csr_g = dm_g.stage_csr(peg_offs, peg_vals)
+    csr_c = dm_c.stage_csr(peg_offs, peg_vals)
+    for cap in (4, 32768):
+        got = dm_g.count_pairs(offsets, lengths, *csr_g, rank, pair_cap=cap)
+        want = dm_c.count_pairs(offsets, lengths, *csr_c, rank, pair_cap=cap)
+        assert got == want and len(want) > 100
+    assert probe_select.launches > before
+    args = []
+    for dm in (dm_g, dm_c):
+        dev = dm.device
+        args.append((torch.from_numpy(offsets[:128]).to(dev),
+                     torch.from_numpy(lengths[:128]).to(dev), 0,
+                     *dm.stage_csr(peg_offs, peg_vals),
+                     torch.from_numpy(rank.astype(np.int32)).to(dev), 3,
+                     4096))
+    bg = M._matrix_pairs(dm_g.ddb, *args[0])
+    bc = M._matrix_pairs(dm_c.ddb, *args[1])
+    assert torch.equal(bg.cpu(), bc)

@@ -3,9 +3,10 @@
 ``close_kmers_tpu_torch`` keeps its own copies of the JAX package's
 host-side modules (params, the encoder, translation, FASTA parsing, the
 signature and family DBs, the oracle, family scoring, the native C++
-scorer and the metrics).  Each case feeds one module pair the same
-numpy-seeded inputs and asserts equal outputs at zero tolerance: floats
-compare by bit pattern, objects field by field.
+scorer, the metrics and the DNA paths of core/dna.py).  Each case feeds
+one module pair the same numpy-seeded inputs and asserts equal outputs
+at zero tolerance: floats compare by bit pattern, objects field by
+field.
 
 The two helpers :func:`as_port_db` and :func:`as_jax_db` give the other
 port tests a DB of each package over the same numpy arrays.
@@ -409,6 +410,41 @@ def check_family(rng, tmp_path):
     assert len(placed) > 5
 
 
+def check_dna(rng, tmp_path):
+    """core/dna.py's three functions on an engine of each package over
+    the same DB: coding contigs, random DNA with ambiguity codes, and a
+    long protein tiled into 512-aa tiles."""
+    from close_kmers_tpu.core import dna as JDNA
+    from close_kmers_tpu.core.api import KmerEngine as JK
+    from close_kmers_tpu_torch.core import dna as TDNA
+    from close_kmers_tpu_torch.core.api import KmerEngine as TK
+    from test_dna import CODON
+
+    entries, funcs, prots = small_db_entries(rng)
+    je = JK(JSD.SignatureDB.from_entries(entries, functions=funcs))
+    te = TK(TSD.SignatureDB.from_entries(entries, functions=funcs), "cpu")
+    contigs = [(f"r{i}", s) for i, s in enumerate(random_dna(rng, 4))]
+    contigs += [(f"c{i}", "N" * i + "".join(CODON[c] for c in p[5:55])
+                 + "ACGTTGCA"[:i]) for i, p in enumerate(prots[:5])]
+    for kw in (dict(), dict(want_hits=True, want_otu=False)):
+        out = [D.annotate_dna_batch(e, contigs, P.EngineParams(min_hits=2),
+                                    **kw)
+               for D, e, P in ((JDNA, je, JP), (TDNA, te, TP))]
+        assert_same(*out)
+        assert sum(len(calls) for calls, _h, _o in out[1]) > 3
+    long = "".join(p[int(a):int(a) + 40] + "X" for p, a in zip(
+        prots * 8, rng.integers(0, 20, size=8 * len(prots))))
+    assert len(long) > 1024
+    for tile in (512, 4096):
+        assert_same(JDNA.probe_long_sequence(je, long, tile),
+                    TDNA.probe_long_sequence(te, long, tile))
+        assert_same(
+            JDNA.annotate_long_sequence(je, "big", long,
+                                        JP.EngineParams(max_gap=50), tile),
+            TDNA.annotate_long_sequence(te, "big", long,
+                                        TP.EngineParams(max_gap=50), tile))
+
+
 def check_metrics(rng, tmp_path):
     a, b = JM.Metrics(), TM.Metrics()
     for name in rng.choice(["requests", "proteins", "x/y"], size=20):
@@ -427,7 +463,8 @@ CHECKS = {"params": check_params, "encoder": check_encoder,
           "translate": check_translate, "oracle": check_oracle,
           "signature_db": check_signature_db, "family_db": check_family_db,
           "fasta": check_fasta, "native": check_native,
-          "family": check_family, "metrics": check_metrics}
+          "family": check_family, "metrics": check_metrics,
+          "dna": check_dna}
 
 
 @pytest.mark.parametrize("module", list(CHECKS))

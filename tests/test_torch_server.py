@@ -1,10 +1,11 @@
 """Port parity for the serving path: KmerEngine.annotate_with_hits
 against the JAX KmerEngine, the /query, /lookup, /add and /fq_lookup
-golden conversations byte-identical through the port's server, the
-device family path byte-identical to the host path (and to the JAX
-server) on every /lookup mode and /fq_lookup, /matrix still unported,
-the port's CLI refusals and family warmup, and proof that the port
-imports without jax."""
+/matrix golden conversations byte-identical through the port's server,
+the device family path byte-identical to the host path (and to the JAX
+server) on every /lookup mode and /fq_lookup, /matrix byte-identical to
+the JAX server on its device path and on the host walk, the port's CLI
+refusals and family warmup, and proof that the port imports without
+jax."""
 
 import asyncio
 import os
@@ -93,7 +94,7 @@ def port_server():
 
 @pytest.mark.parametrize("name", ["version", "query", "query_details",
                                   "query_best", "lookup", "lookup_best",
-                                  "wadd", "yfq", "zfq_gz"])
+                                  "wadd", "xmatrix", "yfq", "zfq_gz"])
 def test_golden_conversation_through_port(port_server, name):
     with open(os.path.join(GOLDEN, "queries.fa"), "rb") as f:
         body = f.read()
@@ -102,14 +103,110 @@ def test_golden_conversation_through_port(port_server, name):
     assert play(port_server, CONVS[name](body)) == want
 
 
-@pytest.mark.parametrize("path", [b"/matrix", b"/mapping/k/matrix",
-                                  b"/mapping/k/fq_lookup", b"/nope"])
+@pytest.mark.parametrize("path", [b"/mapping/k/fq_lookup", b"/nope"])
 def test_unported_post_answers_as_unknown_path(port_server, path):
-    """/matrix is not ported yet: it answers as an unknown path does."""
+    """A POST to a path the server does not route answers 404."""
     req = b"POST " + path + b" HTTP/1.1\nContent-length: 3\n\n>a\n"
     assert play(port_server, req) == (
         b"HTTP/1.1 404 Not found\nContent-type: text/plain\n"
         b"Content-length: 15\n\npath not found\n")
+
+
+def _matrix_body(dup: bool) -> bytes:
+    """Chimeras of the golden queries (test_golden's xmatrix set plus
+    two more); ``dup`` repeats an id, which fails the device gate."""
+    import re
+    with open(os.path.join(GOLDEN, "queries.fa"), "rb") as f:
+        seqs = dict(re.findall(rb">(\S+)[^\n]*\n([A-Z\n]+)", f.read()))
+    s1, s2, s3 = (seqs[k].replace(b"\n", b"") for k in (b"q1", b"q2",
+                                                         b"q3"))
+    prots = [(b"A", s1), (b"B", s1[:60] + s2[60:]), (b"C", s2),
+             (b"D", s3[:50] + s1[40:]), (b"A" if dup else b"E", s3)]
+    return b"".join(b">" + i + b"\n" + s + b"\n" for i, s in prots)
+
+
+def _post(path: bytes, body: bytes) -> bytes:
+    return (b"POST " + path + b" HTTP/1.1\nContent-length: %d\n\n"
+            % len(body) + body)
+
+
+@pytest.fixture(scope="module")
+def matrix_servers():
+    """The port's server and the JAX package's on the golden data (two
+    proteins a batch), both with the matrix proteins registered in the
+    root mapping by /add, and a record of the port's matrix_distance
+    results (False: a gate failed and the host walk answered)."""
+    from close_kmers_tpu.cli.kser import load_server_context as jax_load
+    from close_kmers_tpu_torch.server import http
+
+    seen = []
+    real = http.matrix_distance
+
+    def spy(*a):
+        out = real(*a)
+        seen.append(out is not None)
+        return out
+
+    http.matrix_distance = spy
+    ctx = kser.load_server_context(DATA, batch_size=2, device="cpu")
+    servers = [_serve(c) for c in (ctx, jax_load(DATA, batch_size=2))]
+    ports = [p for p, _ in servers]
+    for port in ports:
+        play(port, _post(b"/add?silent=1", _matrix_body(dup=False)))
+    yield ports, ctx, seen
+    for _, stop in servers:
+        stop()
+    http.matrix_distance = real
+
+
+@pytest.mark.parametrize("query", [b"", b"?min_hits=4&max_gap=20&"
+                                   b"order_constraint=1&min_weighted_hits=3"],
+                         ids=["default_params", "other_params"])
+@pytest.mark.parametrize("route", ["device", "host_walk"])
+@pytest.mark.parametrize("path", ["/matrix", "/mapping/{}/matrix"])
+def test_matrix_matches_jax_server(matrix_servers, path, route, query):
+    """/matrix through the port's server gives the JAX server's bytes, on
+    the root mapping and a keyed one, on the device pair program and on
+    the host walk (forced by a duplicate id), with default and other
+    engine parameters.  Parameters change no probe hit, so the device
+    path, which does not take them, and the host walk, which does, agree
+    (the port answers ADVICE.md's low item on ignored parameters with
+    this test, not with a reroute)."""
+    ports, _ctx, seen = matrix_servers
+    key = f"m_{route}_{len(query)}"
+    conv = [_post(path.format(key).encode() + query,
+                  _matrix_body(dup=route == "host_walk"))]
+    if path != "/matrix":
+        conv.insert(0, _post(f"/mapping/{key}/add?silent=1".encode(),
+                             _matrix_body(dup=False)))
+    n = len(seen)
+    got = [play(port, conv) for port in ports]
+    assert got[0] == got[1]
+    assert got[0].count(b"\t") >= 12         # four pairs or more
+    assert seen[n:] == [route == "device"]
+
+
+def test_matrix_gate_applies_while_draining(matrix_servers, monkeypatch):
+    """Once a request has more proteins than the device program can key,
+    the port stops holding its body and walks each batch as it arrives:
+    the device program is never asked, and the bytes are the JAX
+    server's (which holds the whole body first: ADVICE.md, low)."""
+    from close_kmers_tpu_torch.server import http
+    ports, ctx, seen = matrix_servers
+    monkeypatch.setattr(http, "MATRIX_DEVICE_MAX_P", 2)
+    sizes = []
+    real = ctx.annotate
+
+    async def spy(items, params, **kw):
+        sizes.append(len(items))
+        return await real(items, params, **kw)
+
+    monkeypatch.setattr(ctx, "annotate", spy)
+    n = len(seen)
+    req = _post(b"/matrix", _matrix_body(dup=False))
+    got = [play(port, req) for port in ports]
+    assert got[0] == got[1] and got[0].count(b"\t") >= 12
+    assert seen[n:] == [] and sizes == [2, 2, 1]
 
 
 def _serve(ctx):
