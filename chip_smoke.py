@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Smoke run of the torch port's /query, family, genome, /matrix and
-probe-gather paths on one NVIDIA card.
+"""Smoke run of the torch port's /query (with device best-call), family,
+genome, /matrix, probe-gather, TpuEngine and build_signature_kmers paths
+on one NVIDIA card.
 
     python3 chip_smoke.py
 
@@ -19,6 +20,11 @@ card, and exits 1 without one.
    /fq_lookup ORF batch and on both sides of its route limit (W*D =
    8192 fused, 8193 sorted); probe_select again on the deep DB's sub
    blocks; and
+   best_call on the query batch's scan outputs (as the scan lays them
+   out), also at B in {1, 33, 4097} x W+1 in {2, 32, 33, 313} and on rows
+   of 0-63 calls (overflow flags past 32), timed as called and by launch
+   alone, L2 flushed, its bound the emit bytes once, 12 B a call it
+   reduces and 36 B a row written; and
    the four probe-gather kernels at scripts/gather_exp.py's shapes
    (dma_gather: 2,490,000 ids from a [3.2M, 128] table; vgather:
    2,488,320 ids on a 448 x 128 tile; hbmstream: [3,198,976, 128] in
@@ -68,7 +74,14 @@ card, and exits 1 without one.
      KmerEngine.annotate_with_hits (the server's engine call); a
      4096-query sample is held against native.HashPipeline call counts
      and against native.score_batch fed by a numpy searchsorted over the
-     DB keys.
+     DB keys.  All queries also through DeviceScorer.best_calls_batch
+     (the best_call kernel), each BestCall equal to the slim pack's
+     native one, the two paths' rates side by side (deep cell too).
+   * overflow: 128 rows of 2-48 fragments of query proteins through
+     best_calls_batch; the rows past 32 calls take the fallback, and
+     every row equals the native reference.
+   * TpuEngine: process_batch and annotate_best_match (the family cell's
+     mapping) on 256 query proteins, equal to a CPU engine.
    * family: bench.py's family universe (make_family_universe: kmer
      degree 1-3, 12,288 families) rebuilt from the same seed; all 65,536
      proteins through KmerEngine.best_family_matches_padded (the auto
@@ -105,7 +118,12 @@ card, and exits 1 without one.
      close_kmers_tpu_torch.scripts.gather_exp`` with every experiment
      it runs, deepcmp on the deep DB (deep_sub equal to deep_bin on
      2.49M windows).
-5. All nine kernels' launch counters, reset just before phases 3-4, must
+   * build_db: cli/build_db.main on 20,000 annotated proteins in 20
+     genome files (each function's protein point-mutated in every
+     genome), --min-reps-required 5, recall and validation with
+     --device cuda, and the same CLI with --device cpu, in two processes
+     at the same time: byte-identical files and lines.
+5. All ten kernels' launch counters, reset just before phases 3-4, must
    be above 0; probe_select must have launched on the deep DB's
    sub_blocks path, on the genome path (with scan_score) and on the
    matrix path.
@@ -451,6 +469,7 @@ def phase_kernels(T, ddb, off_d, len_d, params, flush):
     """Phase 2: each kernel against its plain version at the shapes the
     main path gives it."""
     import torch
+    from close_kmers_tpu_torch.ops import best_call as BC
     from close_kmers_tpu_torch.ops import scan_score as S
     hi, lo, valid = T.encode_windows(off_d, len_d)
     flat = (hi.reshape(-1), lo.reshape(-1), valid.reshape(-1))
@@ -493,6 +512,7 @@ def phase_kernels(T, ddb, off_d, len_d, params, flush):
             max_abs_err=err_s, ms=ms_s, launch_ms=launch_s,
             plain_ms=plain_ms_s, **bound_s, library_call=None,
             library_ms=None),
+        "best_call": best_call_record(BC, got_s[0], got_s[1], flush),
     }
 
 
@@ -873,12 +893,14 @@ def spelled_queries(db, n: int, rng):
     return offsets, np.full(n, PROT_LEN, dtype=np.int32)
 
 
-def phase_query(host, T, ds, eng, db, offsets, lengths, params, label):
+def phase_query(host, T, ds, eng, db, offsets, lengths, params, label,
+                card):
     """Phase 4, /query on one DB: every query through DeviceScorer (slim
-    pack + native.best_call_batch), SAMPLE through KmerEngine.
-    annotate_with_hits, and the sample against native.HashPipeline and
-    the searchsorted native.score_batch reference.  Returns (DeviceScorer
-    proteins/s, engine proteins/s)."""
+    pack + native.best_call_batch) and through the device best-call path
+    (phase_best_calls), SAMPLE through KmerEngine.annotate_with_hits, and
+    the sample against native.HashPipeline and the searchsorted
+    native.score_batch reference.  Returns (DeviceScorer proteins/s,
+    engine proteins/s, the best-call rates)."""
     import torch
     n_query = len(offsets)
     slim = ds.slim_mode()
@@ -888,7 +910,7 @@ def phase_query(host, T, ds, eng, db, offsets, lengths, params, label):
               for a in range(0, n_query, BATCH)]
 
     def score_all(cap_per_seq):
-        counts = []
+        counts, natives = [], []
         n_calls_total = 0
         for c_off, c_len in chunks:
             cap = cap_per_seq
@@ -901,17 +923,18 @@ def phase_query(host, T, ds, eng, db, offsets, lengths, params, label):
                     break
                 cap *= 4
             n_calls, cc, cf, cw = dense
-            host.native.best_call_batch(n_calls, None, None, cc, cf, cw)
+            natives.append(host.native.best_call_batch(n_calls, None, None,
+                                                       cc, cf, cw))
             counts.append((n_calls, cc, cf, cw))
             n_calls_total += int(n_calls.sum())
-        return counts, n_calls_total
+        return counts, n_calls_total, natives
 
     score_all(2)                                     # warm-up pass
     passes = []
     for _ in range(3):
         torch.cuda.synchronize()
         t0 = time.time()
-        counts, n_calls_total = score_all(2)
+        counts, n_calls_total, natives = score_all(2)
         torch.cuda.synchronize()
         passes.append(time.time() - t0)
     dt_ds = sorted(passes)[1]
@@ -919,6 +942,9 @@ def phase_query(host, T, ds, eng, db, offsets, lengths, params, label):
     log(f"phase 4 {label}: DeviceScorer slim={slim} on {ds.ddb.tier}: "
         f"{n_query} proteins, {n_calls_total} calls per pass; passes "
         f"{passes} s; median {dt_ds:.4f} s = {rate_ds:.0f} proteins/s")
+    rates_best = phase_best_calls(T, ds, db, chunks,
+                                  lambda: score_all(2)[2], params, label,
+                                  card)
 
     alpha = np.frombuffer(host.encoder.PROT_ALPHA.encode(), np.uint8)
     items = [(f"q{i}", alpha[offsets[i, :lengths[i]]].tobytes().decode())
@@ -969,7 +995,7 @@ def phase_query(host, T, ds, eng, db, offsets, lengths, params, label):
               f"DeviceScorer calls differ for query {s}")
     log(f"phase 4 {label}: {SAMPLE}-protein sample matches the native CPU "
         f"references ({int(n_ref.sum())} calls)")
-    return rate_ds, rate_eng
+    return rate_ds, rate_eng, rates_best
 
 
 def _reads_body(name: str) -> bytes:
@@ -1535,6 +1561,370 @@ def phase_matrix(host, TM, eng, db, offsets, lengths, rng) -> dict:
                 pairs=len(pairs), profile=prof)
 
 
+def calls_case(rng, B: int, M: int, p_emit: float, n_funcs: int):
+    """Scan outputs for best_call: emit at rate ``p_emit``, counts 1-13
+    (bridges merge and not), few functions and a small weight set with
+    both signed zeros (totals tie)."""
+    w = np.array([0.1, 0.3, 0.5, 1.0, 1.5, 2.0, -0.0, 0.0], np.float32)
+    return (rng.random((B, M)) < p_emit,
+            rng.integers(1, 14, size=(B, M)).astype(np.int32),
+            rng.integers(0, n_funcs, size=(B, M)).astype(np.int32),
+            rng.choice(w, size=(B, M)))
+
+
+def best_call_sweep(BC, device) -> int:
+    """best_call against its plain version at B in {1, 33, 4097} x W+1 in
+    {2, 32, 33, 313}, sparse and dense emits, and on a batch of 64 rows of
+    0 to 63 calls (past the 32-call cap from row 33 on), whose overflow
+    flags must say so.  Returns the number of cases held."""
+    import torch
+    n = 0
+    for B in (1, 33, 4097):
+        for M in (2, 32, 33, 313):
+            for p_emit in (0.1, 0.95):
+                rng = np.random.default_rng(B * 1000 + M + int(p_emit * 10))
+                x = [torch.from_numpy(a).to(device)
+                     for a in calls_case(rng, B, M, p_emit, 2 + M % 4)]
+                got = BC.best_call(*x)
+                torch.cuda.synchronize()
+                max_abs_err([BC.best_call_plain(*x)], [got])
+                n += 1
+    rng = np.random.default_rng(64)
+    emit, cnt, fi, wt = calls_case(rng, 64, 313, 0.0, 3)
+    for r in range(64):
+        emit[r, rng.choice(313, size=r, replace=False)] = True
+    x = [torch.from_numpy(a).to(device) for a in (emit, cnt, fi, wt)]
+    got = BC.best_call(*x)
+    torch.cuda.synchronize()
+    max_abs_err([BC.best_call_plain(*x)], [got])
+    check(got[:, 8].tolist() == [int(r > BC.CAPC) for r in range(64)],
+          "best_call's overflow flags are wrong")
+    return n + 1
+
+
+def best_call_record(BC, emit, fields, flush) -> dict:
+    """Phase 2: best_call against its plain version on the query cell's
+    scan outputs (the call planes as the scan lays them out: strided views
+    of one allocation), timed as the path calls it (the wrapper) and by
+    launch alone, L2 flushed, with its bound; then the sweep."""
+    import torch
+    args = (emit, fields[2], fields[3], fields[4])
+    got = BC.best_call(*args)
+    torch.cuda.synchronize()
+    err = max_abs_err([BC.best_call_plain(*args)], [got])
+    check(int((got[:, 0] > 0).sum()) > 0, "best_call found no function")
+    out = torch.empty_like(got)
+    rec = dict(
+        max_abs_err=err,
+        ms=cuda_ms_cold(lambda: BC.best_call(*args), 20, flush),
+        launch_ms=cuda_ms_cold(lambda: BC._launch(*args, out), 20, flush),
+        launch_warm_ms=cuda_ms(lambda: BC._launch(*args, out), 20),
+        plain_ms=cuda_ms(lambda: BC.best_call_plain(*args), 3))
+    # the emit bytes once, 12 B (count, function, weight) for each call it
+    # reduces (a row's first 32), 36 B a row written
+    B, M = emit.shape
+    n_calls = emit.sum(dim=1)
+    reduced = int(n_calls.clamp(max=BC.CAPC).sum())
+    rec.update(bound(B * M + reduced * 12 + B * 36))
+    n_sweep = best_call_sweep(BC, emit.device)
+    log(f"best_call: B={B} W+1={M}, {int(n_calls.sum())} calls, "
+        f"{int((n_calls > BC.CAPC).sum())} rows past the cap: wrapper "
+        f"{rec['ms']:.4f} ms, launch alone {rec['launch_ms']:.4f} ms (L2 "
+        f"flushed; warm {rec['launch_warm_ms']:.4f}), plain "
+        f"{rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.5f} ms, "
+        f"max_abs_err {err}; {n_sweep} sweep cases (B x W+1 x sparse/dense,"
+        f" and rows of 0-63 calls) equal")
+    return dict(name="best_call", route="cuda",
+                source="close_kmers_tpu_torch/csrc/best_call.cu",
+                replaces="close_kmers_tpu/core/device_score.py:223", **rec,
+                library_call=None, library_ms=None)
+
+
+def phase_best_calls(T, ds, db, chunks, slim_natives, params, label, card):
+    """Phase 4: every query through DeviceScorer.best_calls_batch, each
+    row's BestCall equal to the one from the slim pack and
+    native.best_call_batch; the rates of the two paths from this call,
+    interleaved, each from the upload on: to arrays (the device pack
+    copied home / ``slim_natives``: the slim pack unpacked and reduced by
+    native best-call, one result per chunk) and to BestCall objects
+    (best_calls_batch / the slim path plus finish_best_call a row).
+    Returns the rates and best_call's launches a pass."""
+    import torch
+    from close_kmers_tpu_torch.ops.best_call import best_call
+    fo = db.function_of
+
+    def slim_objects():
+        return [T.finish_best_call(int(nf[s]), ofi[s], ocnt[s], owt[s], fo)
+                for nf, ofi, ocnt, owt in slim_natives()
+                for s in range(len(nf))]
+
+    def device_arrays():
+        return [ds.best_batch_packed(o, n, params).cpu().numpy()
+                for o, n in chunks]
+
+    def device_objects():
+        return [b for o, n in chunks
+                for b in ds.best_calls_batch(o, n, fo, params)]
+
+    want = slim_objects()
+    before = best_call.launches
+    packs = device_arrays()                                  # warm-up
+    per_pass = best_call.launches - before
+    got = device_objects()
+    check(len(got) == len(want) and all(
+        vars(g) == vars(w) for g, w in zip(got, want)),
+        f"best_calls_batch differs from the native best-call on the {label} "
+        f"cell")
+    passes = {"slim_arrays": slim_natives, "device_arrays": device_arrays,
+              "slim_objects": slim_objects, "device_objects": device_objects}
+    spent = {k: [] for k in passes}
+    for _ in range(3):
+        for name, fn in passes.items():
+            torch.cuda.synchronize()
+            t0 = time.time()
+            fn()
+            torch.cuda.synchronize()
+            spent[name].append(time.time() - t0)
+    n_query = len(want)
+    n_ovf = int(sum(int(p[:, 8].sum()) for p in packs))
+    named = sum(1 for w in want if w.function)
+    rates = {k: n_query / sorted(v)[1] for k, v in spent.items()}
+    log(f"phase 4 {label}: DeviceScorer.best_calls_batch: {n_query} "
+        f"BestCalls equal the slim pack + native.best_call_batch ({named} "
+        f"named, {n_ovf} rows past the device cap, {per_pass} best_call "
+        f"launches a pass); proteins/s (median of 3, interleaved, upload "
+        f"included) to arrays: device pack {rates['device_arrays']:.0f}, "
+        f"slim pack + native best-call {rates['slim_arrays']:.0f}; to "
+        f"BestCalls: best_calls_batch {rates['device_objects']:.0f}, slim "
+        f"pack + native + finish_best_call {rates['slim_objects']:.0f}; "
+        f"{card}")
+    rates["launches"] = per_pass
+    return rates
+
+
+def overflow_batch(offsets, lengths, rng):
+    """Rows of the query cell's DB with many calls: row r joins 2 + r % 47
+    fragments of 12 residues (five hit windows each) of distinct query
+    proteins, an invalid residue apart, so rows past 32 calls trip the
+    device cap.  Returns (offsets, lengths)."""
+    n_rows, frag = 128, 12
+    width = -(-(48 * (frag + 1) + 9) // 8) * 8
+    out = np.full((n_rows, width), 20, dtype=np.uint8)
+    lens = np.zeros(n_rows, dtype=np.int32)
+    for r in range(n_rows):
+        src = rng.choice(len(offsets), size=2 + r % 47, replace=False)
+        parts = []
+        for q in src:
+            a = int(rng.integers(0, int(lengths[q]) - frag))
+            parts.append(np.append(offsets[q, a:a + frag], 20))
+        row = np.concatenate(parts)
+        out[r, :len(row)] = row
+        lens[r] = len(row)
+    return out, lens
+
+
+def phase_overflow(host, T, ds, db, offsets, lengths, params) -> int:
+    """Phase 4: a batch built to pass the device call-stream cap through
+    best_calls_batch: the flagged rows take the compact-call fallback and
+    every row equals the native reference (searchsorted hits,
+    native.score_batch, native.best_call_batch).  Returns the rows past
+    the cap."""
+    o_off, o_len = overflow_batch(offsets, lengths, np.random.default_rng(8))
+    pack = ds.best_batch_packed(o_off, o_len, params).cpu().numpy()
+    got = ds.best_calls_batch(o_off, o_len, db.function_of, params)
+    n_ref, cs, ce, cc, cf, cw, _ = reference_calls(host, T, db, o_off, o_len,
+                                                   params, max_calls=128)
+    check(np.array_equal(pack[:, 8], (n_ref > 32).astype(np.int32)),
+          "the device cap flags differ from the reference call counts")
+    n_over = int(pack[:, 8].sum())
+    check(n_over > 20, f"only {n_over} rows passed the device cap")
+    nf, ofi, ocnt, owt = host.native.best_call_batch(n_ref, cs, ce, cc, cf, cw)
+    want = [T.finish_best_call(int(nf[s]), ofi[s], ocnt[s], owt[s],
+                               db.function_of) for s in range(len(nf))]
+    check(all(vars(g) == vars(w) for g, w in zip(got, want))
+          and len(got) == len(want),
+          "best_calls_batch differs from the native reference on the "
+          "overflow batch")
+    log(f"phase 4: overflow batch: {len(got)} rows of 2-48 fragments "
+        f"({int(n_ref.max())} calls at most), {n_over} past the device cap "
+        f"took the fallback; every BestCall equals the native reference")
+    return n_over
+
+
+def _results_key(results):
+    """TpuEngine.process_batch's (calls, hits, otu) as comparable values
+    (weights by their f32 bits)."""
+    def bits(w):
+        return int(np.float32(w).view(np.int32))
+    return [([(c.start, c.end, c.count, c.fI, bits(c.weighted))
+              for c in calls],
+             [dict(vars(h), wt=bits(h.wt)) for h in hits], vars(otu))
+            for calls, hits, otu in results]
+
+
+def phase_tpu_engine(host, T, TFam, db, dbf, mapping, offsets, lengths,
+                     params, device) -> None:
+    """Phase 4: TpuEngine.process_batch on a 256-protein sample of the
+    query cell, and annotate_best_match on the same sample against the
+    family cell's mapping (whose DB is the query cell's, its functions
+    renamed), each on the card equal to the same call on a CPU engine."""
+    import copy
+    n = 256
+    alpha = np.frombuffer(host.encoder.PROT_ALPHA.encode(), np.uint8)
+    items = [(f"q{i}", alpha[offsets[i, :lengths[i]]].tobytes().decode())
+             for i in range(n)]
+    t0 = time.time()
+    gpu, cpu = T.TpuEngine(db, device), T.TpuEngine(db, "cpu")
+    t_build = time.time() - t0
+    t0 = time.time()
+    got = gpu.process_batch(items, params, want_hits=True)
+    t_gpu = time.time() - t0
+    want = cpu.process_batch(items, params, want_hits=True)
+    check(_results_key(got) == _results_key(want),
+          "TpuEngine.process_batch on the card differs from the CPU engine")
+    n_calls = sum(len(c) for c, _, _ in got)
+    check(n_calls >= n, f"only {n_calls} calls in the TpuEngine sample")
+    # the family cell's mapping with its CSR as the NR preload's bulk
+    # table, which families_of_kmer reads
+    fam_map = copy.copy(mapping)
+    fam_map._bulk_fam = mapping.fam_csr()
+    got_m = TFam.annotate_best_match(gpu, items, fam_map, dbf.function_of,
+                                     params)
+    want_m = TFam.annotate_best_match(cpu, items, fam_map, dbf.function_of,
+                                      params)
+    placed = sum(1 for _, m in got_m if m.gfam_id)
+    check(got_m == want_m and placed > n // 2,
+          f"annotate_best_match on the card differs from the CPU engine "
+          f"({placed} placed)")
+    log(f"phase 4: TpuEngine: {n} proteins, {n_calls} calls and "
+        f"annotate_best_match ({placed} placed) equal the CPU engine's; "
+        f"engines built in {t_build:.1f} s, process_batch on the card "
+        f"{t_gpu:.2f} s")
+
+
+# build_db corpus: each function's protein in every genome, point-mutated
+BUILD_GENOMES = 20
+BUILD_FUNCS = 1000
+BUILD_PROT_LEN = 100
+BUILD_MUTATION = 0.01
+
+
+def synth_annotated(rng, root: str) -> list[str]:
+    """An annotated protein corpus of BUILD_GENOMES genome files with one
+    protein of each of BUILD_FUNCS functions in every genome, each residue
+    mutated at rate BUILD_MUTATION, so a function recurs across genomes
+    (past --min-reps-required 5) with mutant kmers of its own; ~1% of the
+    proteins are annotated "hypothetical protein" instead (recall then
+    renames them, in New/).  Returns the file paths."""
+    alpha = np.frombuffer(b"ACDEFGHIKLMNPQRSTVWY", np.uint8)
+    base = rng.integers(0, 20, size=(BUILD_FUNCS, BUILD_PROT_LEN))
+    paths = []
+    for g in range(BUILD_GENOMES):
+        prots = base.copy()
+        mut = rng.random(prots.shape) < BUILD_MUTATION
+        prots[mut] = rng.integers(0, 20, size=int(mut.sum()))
+        text = "".join(
+            f">fig|{1000 + g}.1.peg.{f + 1} "
+            f"{'hypothetical protein' if (f + g) % 97 == 0 else f'function {f % 700}'}"
+            f"\n{alpha[prots[f]].tobytes().decode()}\n"
+            for f in range(BUILD_FUNCS))
+        path = os.path.join(root, f"genome{g:02d}.fa")
+        with open(path, "w") as f:
+            f.write(text)
+        paths.append(path)
+    return paths
+
+
+def _tree(d: str) -> dict:
+    out = {}
+    for root, _, files in os.walk(d):
+        for f in files:
+            with open(os.path.join(root, f), "rb") as fh:
+                out[os.path.relpath(os.path.join(root, f), d)] = fh.read()
+    return out
+
+
+def phase_build_db() -> int:
+    """Phase 4: build_signature_kmers (the port's cli/build_db.main) with
+    recall and validation through a KmerEngine on the card, and the same
+    CLI with --device cpu, each in a process of its own, at the same time
+    (run_validation writes to the stdout its module saw at import); every
+    Calls/ and New/ file, the data dir and the validation lines must be
+    byte-identical.  Returns the kept-kmer count."""
+    import re
+    import shutil
+    import subprocess
+    work = os.path.join(REPO, ".build", "chip_smoke_build_db")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(os.path.join(work, "fasta"))
+    procs = []
+    try:
+        paths = synth_annotated(np.random.default_rng(6),
+                                os.path.join(work, "fasta"))
+        vdir = os.path.join(work, "valid")
+        os.makedirs(os.path.join(vdir, "anno"))
+        os.makedirs(os.path.join(vdir, "seq"))
+        for i, path in enumerate(paths[:2]):
+            shutil.copy(path, os.path.join(vdir, "seq", f"genome{i}.fa"))
+            with open(path) as f:
+                heads = [ln[1:].rstrip("\n").split(" ", 1) for ln in f
+                         if ln[0] == ">"]
+            with open(os.path.join(vdir, "anno", f"genome{i}"), "w") as f:
+                # the second genome's truth names every fifth one wrongly
+                f.write("".join(
+                    f"{pid}\t{'other' if i and k % 5 == 0 else fn}\n"
+                    for k, (pid, fn) in enumerate(heads)))
+
+        def argv(device):
+            out = os.path.join(work, device)
+            return ([os.path.join(out, "data")]
+                    + [f"--fasta={p}" for p in paths]
+                    + ["--min-reps-required", "5",
+                       f"--recall-output={os.path.join(out, 'recall')}",
+                       f"--validation-folder={vdir}", "--validation-verbose",
+                       "--device", device])
+
+        code = ("import sys; sys.path.insert(0, sys.argv[1]); "
+                "from close_kmers_tpu_torch.cli.build_db import main; "
+                "sys.exit(main(sys.argv[2:]))")
+        t0 = time.time()
+        procs = [subprocess.Popen([sys.executable, "-c", code, REPO,
+                                   *argv(dev)], cwd=REPO, text=True,
+                                  stdout=subprocess.PIPE,
+                                  stderr=subprocess.PIPE)
+                 for dev in ("cuda", "cpu")]
+        outs, spent = [], []
+        for proc in procs:
+            outs.append(proc.communicate(timeout=600))
+            spent.append(time.time() - t0)
+        (gpu_out, gpu_err), (cpu_out, cpu_err) = outs
+        check(all(proc.returncode == 0 for proc in procs),
+              f"build_db failed: {gpu_err[-400:]} {cpu_err[-400:]}")
+        kept = int(re.search(r"Kept (\d+) kmers", gpu_err).group(1))
+        check(gpu_out == cpu_out and "count=" in cpu_out,
+              "build_db's validation lines differ between cuda and cpu")
+        trees = [_tree(os.path.join(work, d)) for d in ("cuda", "cpu")]
+        n_calls = sum(k.startswith("recall/Calls/") for k in trees[0])
+        check(trees[0] == trees[1] and n_calls == BUILD_GENOMES,
+              "build_db's files (data dir, Calls/, New/) differ between "
+              "cuda and cpu")
+        n_new = sum(len(v.splitlines()) for k, v in trees[0].items()
+                    if k.startswith("recall/New/"))
+        log(f"phase 4: build_db: {BUILD_GENOMES * BUILD_FUNCS} proteins in "
+            f"{BUILD_GENOMES} genome files, {kept} kmers kept; recall "
+            f"({n_calls} Calls/ files, {n_new} New/ lines) and validation "
+            f"({gpu_out.count('incorrect' + chr(9))} incorrect lines)"
+            f" byte-identical between --device cuda ({spent[0]:.1f} s) and "
+            f"--device cpu ({spent[1]:.1f} s, concurrent)")
+        return kept
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def main() -> int:
     try:
         import torch
@@ -1558,7 +1948,9 @@ def main() -> int:
         from close_kmers_tpu_torch.ops import scan_score as S
         from close_kmers_tpu_torch.core.api import KmerEngine
         from close_kmers_tpu_torch.core.device_score import DeviceScorer
+        from close_kmers_tpu_torch.core import family as TFam
         from close_kmers_tpu_torch.ops import _build
+        from close_kmers_tpu_torch.ops.best_call import best_call
         from close_kmers_tpu_torch.ops import gather_exp as gx
         from close_kmers_tpu_torch.ops.family_group import family_group
         from close_kmers_tpu_torch.ops.probe_select import (famwide_select,
@@ -1588,7 +1980,7 @@ def main() -> int:
                 "row_gather": row_gather, "famwide_select": famwide_select,
                 "family_group": family_group, "dma_gather": gx.dma_gather,
                 "vgather": gx.vgather, "hbmstream": gx.hbmstream,
-                "dmaflush": gx.dmaflush}
+                "dmaflush": gx.dmaflush, "best_call": best_call}
 
     # -- phase 1: device and build
     log(f"card: {card} (torch {torch.__version__}, CUDA {torch.version.cuda},"
@@ -1684,22 +2076,26 @@ def main() -> int:
     log("phase 3: golden conversations byte-identical on the card")
 
     # -- phase 4: real size
-    rate_ds, rate_eng = phase_query(host, T, ds, eng, db, offsets, lengths,
-                                    params, "query")
+    rate_ds, rate_eng, best_q = phase_query(host, T, ds, eng, db, offsets,
+                                            lengths, params, "query", card)
+    n_over = phase_overflow(host, T, ds, db, offsets, lengths, params)
+    phase_tpu_engine(host, T, TFam, db, dbf, mapping, offsets, lengths,
+                     params, device)
     rate_fam, _spent = phase_family(TF, eng, mapping, offsets, lengths,
                                     params, device)
     rate_reads, rate_orfs = phase_reads(eng, mapping, reads, n_orfs, params)
     gen = phase_genome(host, T, TG, eng, db, genome, params)
     mat = phase_matrix(host, TM, eng, db, offsets, lengths, src_rng)
     before = probe_select.launches
-    rate_deep, rate_deep_eng = phase_query(host, T, ds_deep, eng_deep,
-                                           db_deep, d_off, d_len, params,
-                                           "deep")
+    rate_deep, rate_deep_eng, best_d = phase_query(
+        host, T, ds_deep, eng_deep, db_deep, d_off, d_len, params, "deep",
+        card)
     sub_launches = probe_select.launches - before
     del ds_deep, eng_deep
     torch.cuda.empty_cache()
     log(f"phase 4: gather_exp experiments ({', '.join(GX.EXPERIMENTS)})")
     exp = GX.run(GX.EXPERIMENTS, device, deep=db_deep)
+    kept = phase_build_db()
     peak = torch.cuda.max_memory_allocated()
     log(f"phase 4: peak device memory {peak} B ({peak / 2**30:.2f} GiB)")
 
@@ -1709,7 +2105,8 @@ def main() -> int:
         f"the deep DB's sub_blocks path: {sub_launches}; on the genome path "
         f"(one genome) probe_select {gen['launches'][0]}, scan_score "
         f"{gen['launches'][1]}; on the matrix path (one request) "
-        f"probe_select {mat['launches']}")
+        f"probe_select {mat['launches']}; best_call a 65,536-protein pass "
+        f"{best_q['launches']} (query), {best_d['launches']} (deep)")
     for name, n in launches.items():
         check(n > 0, f"{name} was never launched on the main path")
     check(sub_launches > 0, "probe_select never ran on the sub_blocks path")
@@ -1725,7 +2122,16 @@ def main() -> int:
         f"KmerEngine {rate_deep_eng:.0f} proteins/s, deep_sub "
         f"{exp['deep_sub'] * 1e3:.4f} ms / deep_bin "
         f"{exp['deep_bin'] * 1e3:.4f} ms per {GX.N_IDX} windows, tier probes "
-        f"(ms, peak B) {tiers}, peak {peak} B on {card}")
+        f"(ms, peak B) {tiers}; device best-call (query / deep) "
+        f"{best_q['device_arrays']:.0f} / {best_d['device_arrays']:.0f} "
+        f"proteins/s to arrays (slim pack + native "
+        f"{best_q['slim_arrays']:.0f} / {best_d['slim_arrays']:.0f}), "
+        f"best_calls_batch {best_q['device_objects']:.0f} / "
+        f"{best_d['device_objects']:.0f} to BestCalls (slim pack + native + "
+        f"finish_best_call {best_q['slim_objects']:.0f} / "
+        f"{best_d['slim_objects']:.0f}), {n_over} overflow rows through the "
+        f"fallback; build_db "
+        f"kept {kept} kmers; peak {peak} B on {card}")
 
     records = [dict(kernels[k], launches=launches[k]) for k in wrappers]
     print(json.dumps({"kernels": records}))

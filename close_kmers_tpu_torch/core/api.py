@@ -6,7 +6,8 @@ Ported: ``AnnotationResult``, ``KmerEngine.annotate`` and
 ``annotate_with_hits`` (the /query path), and the family path:
 ``annotate_family``, ``best_family_matches``,
 ``best_family_matches_padded`` and ``family_scores_batch`` (whose hit
-arrays are now a required argument: the port keeps no ``_last_hits``).
+arrays are now a required argument: the port keeps no ``_last_hits``, so
+it has no ``hits_compact`` either), and ``best_call``.
 ``mesh=`` raises ``NotImplementedError`` until ``parallel/`` is ported.
 
 Three deliberate differences from the reference: the engine caches its
@@ -430,3 +431,6 @@ class KmerEngine:
         CSR.  ``h``: compact hit arrays from annotate_with_hits."""
         keys, offs, vals = mapping.fam_csr()
         return native.family_scores(h["code"], h["row_off"], keys, offs, vals)
+
+    def best_call(self, calls: list[O.Call]) -> O.BestCall:
+        return O.find_best_call(calls, self.function_of)

@@ -6,11 +6,13 @@ Ported: ``neutral_scan_state``, ``_scan_score_core`` (whose loop is the
 ``scan_score`` kernel; the genome program chains it over tiles),
 ``probe_score`` (the counterpart of ``_probe_score_jit``, with the slim
 0/2/3 packs of ``compact_calls``, which the family and genome programs
-share) and ``DeviceScorer``
-(``score_batch``, ``score_batch_packed``, ``slim_mode`` and the
-unpackers).  ``_best_call_device`` / ``_probe_best_jit`` /
-``best_calls_batch`` are not ported yet, nor are the packed-upload
-arguments of ``score_batch_packed`` (relay packers, see core/engine.py).
+share), ``probe_best`` (the counterpart of ``_probe_best_jit``: the scan's
+calls reduced on the device by the ``best_call`` kernel, the port of
+``_best_call_device``) and ``DeviceScorer`` (``score_batch``,
+``score_batch_packed``, ``slim_mode``, the unpackers, and the fused
+best-call path ``best_batch_packed`` / ``best_calls_batch`` /
+``finish_best_batch``).  Left out: the packed-upload arguments of
+``score_batch_packed`` (relay packers, see core/engine.py).
 
 Exactness: integer fields match the oracle exactly; weighted sums are
 float32 additions in the order the reference performs them.  The
@@ -25,10 +27,12 @@ import torch
 
 from .. import params as P
 from ..params import EngineParams
+from ..native import api as native
+from ..ops.best_call import best_call
 from ..ops.scan_score import neutral_scan_state, scan_score  # noqa: F401
 from ..utils.device import resolve_device
-from .engine import DeviceDB, encode_windows, probe_windows, \
-    stable_true_first
+from .engine import DeviceDB, encode_windows, finish_best_call, \
+    probe_windows, stable_true_first
 
 # Copied from close_kmers_tpu/core/device_family.py: slim CALL pack plane
 # = (count << CALL_FOLD_SHIFT) | fi, legal when counts fit CALL_CNT_BITS
@@ -99,6 +103,20 @@ def probe_score(ddb: DeviceDB, offsets, lengths, params: EngineParams,
         params.max_gap, params.order_constraint)
     return (compact_calls(emit, fields, call_cap, slim),
             found.sum(dtype=torch.int32))
+
+
+def probe_best(ddb: DeviceDB, offsets, lengths, params: EngineParams):
+    """Encode + probe + scan + find_best_call's reductions
+    (device_score.py::_probe_best_jit).  Returns the [B, 9] int32 pack
+    of :func:`ops.best_call.best_call`: n_funcs, fi0, cnt0, wt0 (bits),
+    fi1, cnt1, wt1 (bits), vec2 count, overflow (a row with more than 32
+    calls, which needs the host fallback)."""
+    hi, lo, valid = encode_windows(offsets, lengths)
+    found, p_fi, _p_oi, p_av, p_wt, _ = probe_windows(ddb, hi, lo, valid)
+    emit, (_start, _end, c_cnt, c_fi, c_wt) = _scan_score(
+        found, p_fi, p_av, p_wt, params.min_hits, params.min_weighted_hits,
+        params.max_gap, params.order_constraint)
+    return best_call(emit, c_cnt, c_fi, c_wt)
 
 
 def _unpack(out: np.ndarray, B: int, n_planes: int):
@@ -222,3 +240,58 @@ class DeviceScorer:
         out, _ = probe_score(self.ddb, *self._upload(offsets, lengths),
                              params, cap, slim)
         return out, cap
+
+    def best_batch_packed(self, offsets, lengths,
+                          params: EngineParams | None = None):
+        """Fully fused best-call path: probe + scan + the device
+        find_best_call reductions.  Returns the [B, 9] int32 pack of
+        :func:`probe_best` as a device tensor, not yet transferred."""
+        params = params or EngineParams()
+        return probe_best(self.ddb, *self._upload(offsets, lengths), params)
+
+    def best_calls_batch(self, offsets, lengths, function_of,
+                         params: EngineParams | None = None):
+        """The complete fused best-call path: device reductions + host
+        decision, with the rows that overflow the device call-stream cap
+        (more than 32 calls, column 8) scored again exactly through the
+        compact-call path and the native top-3 reduction.  Returns one
+        oracle.BestCall per row."""
+        params = params or EngineParams()
+        out = self.best_batch_packed(offsets, lengths, params).cpu().numpy()
+        res = self.finish_best_batch(out, function_of, overflow="ignore")
+        rows = np.nonzero(out[:, 8])[0]
+        if len(rows):
+            sub_off = np.ascontiguousarray(offsets[rows])
+            sub_len = np.ascontiguousarray(lengths[rows])
+            dev, cap = self.score_batch_packed(
+                sub_off, sub_len, params,
+                calls_per_seq_cap=float(sub_off.shape[1]))
+            n_calls, cs, ce, cc, cf, cw = self.unpack_dense(
+                dev.cpu().numpy(), len(rows), cap)
+            nf, ofi, ocnt, owt = native.best_call_batch(
+                n_calls, cs, ce, cc, cf, cw)
+            for k, r in enumerate(rows):
+                res[r] = finish_best_call(int(nf[k]), ofi[k], ocnt[k],
+                                          owt[k], function_of)
+        return res
+
+    @staticmethod
+    def finish_best_batch(out_np: np.ndarray, function_of,
+                          overflow: str = "raise"):
+        """Host decision step over the device reductions: one
+        oracle.BestCall per row of the [B, 9] pack (exact, including the
+        lexicographic ambiguous-pair naming).  ``overflow="raise"``
+        raises ``OverflowError`` when a row exceeded the device
+        call-stream cap; ``"ignore"`` skips the check (best_calls_batch
+        scores those rows again)."""
+        if overflow == "raise" and out_np[:, 8].any():
+            raise OverflowError(
+                "rows exceeded the device call-stream cap; use the "
+                "score_batch path for these sequences")
+        # plain Python values, row by row: the f32 weights widen exactly,
+        # as finish_best_call's float() of an np.float32 does
+        wts = out_np[:, [3, 6]].copy().view(np.float32).tolist()
+        return [finish_best_call(nf, (fi0, fi1, 0), (cnt0, cnt1, v2c),
+                                 (w[0], w[1], 0.0), function_of)
+                for (nf, fi0, cnt0, _, fi1, cnt1, _, v2c, *_), w
+                in zip(out_np.tolist(), wts)]

@@ -6,7 +6,9 @@ auto-ladder (``from_db`` builds the same numpy tables; ``from_numpy``
 carries a JAX ``DeviceDB``'s state across; ``device_db_of`` picks the
 table of the genome and matrix programs), ``encode_windows`` in its
 integer log-tree form, ``probe_windows`` (all five tiers),
-``FastAnnotator`` (``pad_batch``, ``probe_compact``) and
+``FastAnnotator`` (``pad_batch``, ``probe_compact``, ``annotate``,
+``best_calls``), ``TpuEngine`` (the batch engine that replays each
+sequence's hits through the oracle's state machine), ``replay_hits`` and
 ``finish_best_call``.
 
 The probe tiers, in the order ``probe_windows`` tries them:
@@ -48,6 +50,7 @@ import numpy as np
 import torch
 
 from .. import params
+from ..params import EngineParams
 from ..db.signature_db import SignatureDB
 from ..ops import encoder
 from . import oracle as O
@@ -484,6 +487,94 @@ def _probe_compact(ddb: DeviceDB, offsets, lengths, hit_cap: int,
     return torch.cat([n_hits, torch.stack(planes).reshape(-1)])
 
 
+class TpuEngine:
+    """Single-device batch annotation engine (engine.py::TpuEngine).
+
+    Usage::
+
+        eng = TpuEngine(db, "cuda")
+        results = eng.process_batch([("id1", "MKLV..."), ...])
+
+    Each result mirrors process_aa_seq outputs: (calls, hits, otu).
+    """
+
+    def __init__(self, db: SignatureDB, device):
+        self.db = db
+        self.device = resolve_device(device)
+        self.ddb = DeviceDB.from_db(db, self.device)
+
+    def probe_padded(self, offsets: np.ndarray, lengths: np.ndarray):
+        """Encode + probe a padded uint8 batch (engine.py::
+        _probe_batch_jit); returns numpy arrays (found, fi, oi, avg_off,
+        wt) of shape [B, L-K]."""
+        off = torch.from_numpy(np.ascontiguousarray(offsets)).to(self.device)
+        lens = torch.from_numpy(np.ascontiguousarray(
+            lengths, dtype=np.int32)).to(self.device)
+        hi, lo, valid = encode_windows(off, lens)
+        return tuple(x.cpu().numpy()
+                     for x in probe_windows(self.ddb, hi, lo, valid)[:5])
+
+    def hits_of_batch(self, seqs: list[str], pad_to: int | None = None):
+        """Encode+probe a list of sequences; returns per-sequence hit
+        lists of :class:`oracle.Hit` in position order (codes included
+        for HIT-line formatting)."""
+        B = len(seqs)
+        if B == 0:
+            return []
+        # the padded length rounds up to a power of two, as in the JAX
+        # engine (where it bounds jit cache entries), so both engines see
+        # the same batch shapes
+        L = max(pad_to or 0, max(len(s) for s in seqs) + 1, K + 2)
+        L = 1 << (L - 1).bit_length()
+        offsets = np.full((B, L), 20, dtype=np.uint8)
+        lengths = np.zeros(B, dtype=np.int32)
+        for i, s in enumerate(seqs):
+            o = encoder.seq_to_offsets(s)
+            offsets[i, :len(o)] = o
+            lengths[i] = len(o)
+        found, fi, oi, avg_off, wt = self.probe_padded(offsets, lengths)
+        bi, pos, codes = _hit_codes(found, offsets)
+        bounds = np.searchsorted(bi, np.arange(B + 1))
+        out = []
+        for i in range(B):
+            out.append([O.Hit(oI=int(oi[i, p]), pos=int(p),
+                              avg_off=int(avg_off[i, p]), fI=int(fi[i, p]),
+                              wt=float(wt[i, p]), code=int(c))
+                        for p, c in zip(pos[bounds[i]:bounds[i + 1]],
+                                        codes[bounds[i]:bounds[i + 1]])])
+        return out
+
+    def hit_codes_of_batch(self, seqs: list[str]):
+        """Array-native hit extraction for bulk ingest (the NR preload,
+        nr_loader.cc:160-183): returns (row_off int64[B+1], codes
+        int64[n_hits]) without building any per-hit Python objects."""
+        B = len(seqs)
+        if B == 0:
+            return np.zeros(1, np.int64), np.zeros(0, np.int64)
+        offsets, lengths = FastAnnotator.pad_batch(self, seqs)
+        found = self.probe_padded(offsets, lengths)[0]
+        bi, _pos, codes = _hit_codes(found, offsets)
+        row_off = np.searchsorted(bi, np.arange(B + 1)).astype(np.int64)
+        return row_off, codes
+
+    def process_batch(self, items: list[tuple[str, str]],
+                      params: EngineParams | None = None,
+                      want_hits: bool = False, want_otu: bool = True):
+        """Full batch annotation: returns a list of (calls, hits, otu)
+        per input (id, seq) pair, equal to the oracle's process_aa_seq."""
+        params = params or EngineParams()
+        hit_lists = self.hits_of_batch([s for _, s in items])
+        results = []
+        for hits in hit_lists:
+            calls: list[O.Call] = []
+            otu = O.OtuStats() if want_otu else None
+            replay_hits(hits, params, calls, otu)
+            if otu is not None:
+                otu.finalize()
+            results.append((calls, hits if want_hits else None, otu))
+        return results
+
+
 class FastAnnotator:
     """Device probe + native C++ scoring (engine.py::FastAnnotator)."""
 
@@ -571,6 +662,30 @@ class FastAnnotator:
                          + pack[p + 2, t].astype(np.int64))
         return h
 
+    def annotate(self, seqs: list[str],
+                 params: EngineParams | None = None,
+                 max_calls_per_seq: int = 512, want_votes: bool = False):
+        """probe + native scoring.  Returns (hits dict, n_calls, call
+        arrays (start, end, count, fi, wt), votes)."""
+        from ..native import api as native
+        params = params or EngineParams()
+        offsets, lengths = self.pad_batch(seqs)
+        h = self.probe_compact(offsets, lengths)
+        n_calls, cs, ce, cc, cf, cw, votes = native.score_batch(
+            h["pos"], h["fi"], h["oi"], h["avg_off"], h["wt"], h["row_off"],
+            params, max_calls_per_seq, want_votes)
+        return h, n_calls, (cs, ce, cc, cf, cw), votes
+
+    def best_calls(self, seqs: list[str], function_of,
+                   params: EngineParams | None = None):
+        """Batch find_best_call: returns a list of oracle.BestCall."""
+        from ..native import api as native
+        h, n_calls, (cs, ce, cc, cf, cw), _ = self.annotate(seqs, params)
+        nf, ofi, ocnt, owt = native.best_call_batch(n_calls, cs, ce, cc, cf,
+                                                    cw)
+        return [finish_best_call(int(nf[s]), ofi[s], ocnt[s], owt[s],
+                                 function_of) for s in range(len(seqs))]
+
 
 # Copied from close_kmers_tpu/core/engine.py::finish_best_call (pure Python).
 def finish_best_call(n_funcs: int, fi3, cnt3, wt3, function_of) -> O.BestCall:
@@ -605,3 +720,15 @@ def finish_best_call(n_funcs: int, fi3, cnt3, wt3, function_of) -> O.BestCall:
                 result.score_offset = pair_offset
                 result.weighted_score = float(wt3[0])
     return result
+
+
+# Copied from close_kmers_tpu/core/engine.py::replay_hits (pure Python).
+def replay_hits(hits, params: EngineParams, calls, otu) -> None:
+    """Drive the exact gather-hits state machine over a precomputed,
+    position-ordered hit list.  The machine's transitions depend only on
+    the hit sequence (kguts.cc:808-877), so replay is equivalent to the
+    inline scan."""
+    state = O.GatherState(params)
+    for h in hits:
+        state.on_hit(h, calls, otu)
+    state.finish(calls, otu)

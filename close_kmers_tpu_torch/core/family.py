@@ -1,5 +1,4 @@
-# Copied from close_kmers_tpu/core/family.py, without annotate_best_match
-# (its replay_hits lives in the JAX engine; the port never calls it).
+# Copied from close_kmers_tpu/core/family.py.
 """Family scoring: per-sequence family score accumulation, best global/local
 family selection, and the all-matches report.
 
@@ -553,3 +552,31 @@ def all_matches_rows(
     out.append("//\n")
     return "".join(out)
 
+
+def annotate_best_match(
+    engine,
+    items: list[tuple[str, str]],
+    mapping: KmerFamilyMapping,
+    function_of,
+    params: EngineParams | None = None,
+    kmer_hit_threshold: int = 3,
+    allow_ambiguous: bool = False,
+    target_genus_id: int = 0,
+    genus_filter: bool = True,
+) -> list[tuple[str, BestMatch]]:
+    """End-to-end /lookup?find_best_match=1 over a batch: probe on device,
+    replay calls, accumulate family scores, pick best families."""
+    params = params or EngineParams()
+    from .engine import replay_hits
+    hit_lists = engine.hits_of_batch([s for _, s in items])
+    results = []
+    for (sid, _seq), hits in zip(items, hit_lists):
+        calls: list[O.Call] = []
+        replay_hits(hits, params, calls, None)
+        best = O.find_best_call(calls, function_of)
+        seq_score = accumulate_family_scores(hits, mapping)
+        m = find_best_family_match(best, seq_score, mapping,
+                                   kmer_hit_threshold, allow_ambiguous,
+                                   target_genus_id, genus_filter)
+        results.append((sid, m))
+    return results

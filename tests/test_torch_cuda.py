@@ -24,6 +24,8 @@ from close_kmers_tpu_torch.db import family_db
 from close_kmers_tpu_torch.db.signature_db import SignatureDB
 from close_kmers_tpu_torch.params import EngineParams
 from close_kmers_tpu_torch.ops import gather_exp as gx
+from close_kmers_tpu_torch.ops.best_call import (CAPC, best_call,
+                                                 best_call_plain)
 from close_kmers_tpu_torch.ops.family_group import (SMEM_MAX_COLS,
                                                     family_group,
                                                     family_group_plain, route)
@@ -789,3 +791,137 @@ def test_matrix_on_card_matches_cpu(cuda):
     bg = M._matrix_pairs(dm_g.ddb, *args[0])
     bc = M._matrix_pairs(dm_c.ddb, *args[1])
     assert torch.equal(bg.cpu(), bc)
+
+
+BC_WEIGHTS = np.array([0.1, 0.3, 0.5, 1.0, 1.5, 2.0, -0.0, 0.0], np.float32)
+
+
+def _calls(rng, B, M, p_emit, n_funcs):
+    """Scan outputs for best_call: emit at rate ``p_emit``, counts 1-13
+    (bridges merge and not), few functions and a small weight set with
+    both signed zeros (totals tie)."""
+    return (rng.random((B, M)) < p_emit,
+            rng.integers(1, 14, size=(B, M)).astype(np.int32),
+            rng.integers(0, n_funcs, size=(B, M)).astype(np.int32),
+            rng.choice(BC_WEIGHTS, size=(B, M)))
+
+
+@pytest.mark.parametrize("B", [1, 33, 4097])
+@pytest.mark.parametrize("M", [2, 32, 33, 313])
+@pytest.mark.parametrize("p_emit", [0.1, 0.95])
+def test_best_call_kernel_matches_plain(cuda, B, M, p_emit):
+    """The warp-per-row kernel at B of one row, one past a block's eight
+    rows and past 4096, and M below, at and past the 32-call cap (rows of
+    more than 32 calls at the high emit rate)."""
+    rng = np.random.default_rng(B * 1000 + M + int(p_emit * 10))
+    x = [torch.from_numpy(a) for a in _calls(rng, B, M, p_emit, 2 + M % 4)]
+    want = best_call_plain(*x)
+    before = best_call.launches
+    got = best_call(*(a.to(cuda) for a in x))
+    torch.cuda.synchronize()
+    assert best_call.launches == before + 1
+    assert torch.equal(got.cpu(), want)
+    if M > 2 * CAPC and p_emit > 0.9:
+        assert bool(want[:, 8].any())
+
+
+def test_best_call_kernel_constructed_rows(cuda):
+    """Rows of exactly 0, 1, 31, 32, 33 and 40 calls, full ties, bridges
+    that merge and not, signed zeros, on the scan's layout: the call
+    planes as strided views of one [5, B, W+1] allocation."""
+    rows = [[], [(6, 1, 1.0)], [(6, 1, 1.0), (6, 2, 1.0)],
+            [(7, 6, 2.0), (7, 7, 2.0), (7, 8, 2.0)],
+            [(6, 1, 1.0), (4, 2, 1.0), (6, 1, 1.0)],
+            [(6, 3, 1.0), (5, 4, 1.0), (6, 3, 1.0)],
+            [(5, 2, -0.0), (5, 3, 0.0)]]
+    rows += [[(1 + k % 5, k % 3, float(BC_WEIGHTS[k % 6])) for k in range(n)]
+             for n in (31, 32, 33, 40)]
+    B, M = len(rows), 313
+    emit = torch.zeros((B, M), dtype=torch.bool)
+    planes = torch.zeros((5, B, M), dtype=torch.int32)
+    wt = planes[4].view(torch.float32)
+    for r, calls in enumerate(rows):
+        for c, (n, f, w) in zip(range(3, M, 7), calls):
+            emit[r, c] = True
+            planes[2, r, c], planes[3, r, c], wt[r, c] = n, f, w
+    want = best_call_plain(emit, planes[2], planes[3], wt)
+    assert want[:, 8].tolist() == [int(len(r) > CAPC) for r in rows]
+    pg = planes.to(cuda)
+    got = best_call(emit.to(cuda), pg[2], pg[3], pg[4].view(torch.float32))
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+
+
+def test_best_calls_batch_on_card_matches_cpu(cuda):
+    """DeviceScorer's fused best-call path on the card equals the CPU
+    port's: the [B, 9] pack (a 40-call overflow row included) and every
+    BestCall of best_calls_batch, through probe_select, scan_score and
+    best_call."""
+    rng = np.random.default_rng(6)
+    db, prots = _db(rng)
+    offsets = np.full((65, 512), 20, np.uint8)
+    lengths = rng.integers(30, 500, size=65).astype(np.int32)
+    for b in range(64):
+        offsets[b, :lengths[b]] = np.resize(prots[b % len(prots)],
+                                            lengths[b])
+    # one row of 40 calls at min_hits=1: 40 fragments of 10 residues (3
+    # hit windows), each of the next function, an invalid residue apart
+    frag = np.concatenate([np.append(prots[f % 20, :10], 20)
+                           for f in range(40)])
+    offsets[64, :len(frag)], lengths[64] = frag, len(frag)
+    g, c = DeviceScorer(db, cuda), DeviceScorer(db, "cpu")
+    before = best_call.launches
+    for params in (EngineParams(), EngineParams(min_hits=1)):
+        og = g.best_batch_packed(offsets, lengths, params)
+        oc = c.best_batch_packed(offsets, lengths, params)
+        assert torch.equal(og.cpu(), oc) and int(oc[:, 0].sum()) > 20
+        got = g.best_calls_batch(offsets, lengths, db.function_of, params)
+        want = c.best_calls_batch(offsets, lengths, db.function_of, params)
+        assert [vars(x) for x in got] == [vars(x) for x in want]
+    assert int(oc[64, 8]) == 1                 # the overflow row
+    assert best_call.launches >= before + 2
+
+
+def _plain_results(results):
+    """process_batch's (calls, hits, otu) as comparable values (the
+    weights by their f32 bits)."""
+    def bits(w):
+        return int(np.float32(w).view(np.int32))
+    return [([(x.start, x.end, x.count, x.fI, bits(x.weighted))
+              for x in calls],
+             [dict(vars(h), wt=bits(h.wt)) for h in hits],
+             vars(otu)) for calls, hits, otu in results]
+
+
+def test_tpu_engine_on_card_matches_cpu(cuda):
+    """TpuEngine.process_batch and annotate_best_match on the card equal
+    the same calls on a CPU engine."""
+    from close_kmers_tpu_torch.core import family as F
+    from close_kmers_tpu_torch.core.engine import TpuEngine
+    rng = np.random.default_rng(7)
+    db, prots = _db(rng)
+    alpha = np.array(list("ACDEFGHIKLMNPQRSTVWY"))
+    items = [(f"s{b}", "".join(alpha[np.resize(prots[b % 20],
+                                               int(rng.integers(9, 300)))]))
+             for b in range(48)] + [("e", ""), ("x", "XXXXXXXXXXXXX")]
+    mapping = family_db.KmerFamilyMapping()
+    for k in db.keys:
+        for f in set(rng.integers(0, 30, size=rng.integers(1, 4)).tolist()):
+            mapping.add_fam_mapping(int(f), int(k))
+    mapping.families = [family_db.FamilyData(
+        f"PGF_{f % 7:08d}", f"PLF_1_{f:08d}", 1, f"fn{f % 20}", f, 10, 3)
+        for f in range(30)]
+    g, c = TpuEngine(db, cuda), TpuEngine(db, "cpu")
+    before = probe_select.launches
+    for params in (EngineParams(), EngineParams(min_hits=2, max_gap=40)):
+        want, got = (_plain_results(e.process_batch(items, params,
+                                                    want_hits=True))
+                     for e in (c, g))
+        assert got == want
+        assert sum(len(calls) for calls, _, _ in want) > 20
+    want = F.annotate_best_match(c, items, mapping, db.function_of,
+                                 genus_filter=False)
+    got = F.annotate_best_match(g, items, mapping, db.function_of,
+                                genus_filter=False)
+    assert got == want and sum(1 for _, m in want if m.gfam_id) > 10
+    assert probe_select.launches > before

@@ -3,7 +3,9 @@
 ``close_kmers_tpu_torch`` keeps its own copies of the JAX package's
 host-side modules (params, the encoder, translation, FASTA parsing, the
 signature and family DBs, the oracle, family scoring, the native C++
-scorer, the metrics and the DNA paths of core/dna.py).  Each case feeds
+scorer, the metrics, the DNA paths of core/dna.py, the DB builder and
+its recall harness, propagate_names, the KMC reader, and the host-only
+CLI tools kclient, kmerge and propagate_names).  Each case feeds
 one module pair the same numpy-seeded inputs and asserts equal outputs
 at zero tolerance: floats compare by bit pattern, objects field by
 field.
@@ -445,6 +447,248 @@ def check_dna(rng, tmp_path):
                                         TP.EngineParams(max_gap=50), tile))
 
 
+def annotated_genomes(rng, tmp, n_genomes=6, n_funcs=8, prot_len=60,
+                      p_mut=0.03):
+    """Annotated protein FASTA files, one a genome: each function's
+    protein recurs in every genome with point mutations at rate
+    ``p_mut``, one function in a few genomes only, one named by two roles.
+    Returns the file paths."""
+    alpha = np.array(ALPHA)
+    base = rng.choice(alpha, size=(n_funcs, prot_len))
+    names = [f"Function {f}" for f in range(n_funcs)]
+    names[-1] = "Role X / Role Y"
+    paths = []
+    for g in range(n_genomes):
+        body = []
+        for f in range(n_funcs):
+            if f == 1 and g % 3:
+                continue                       # a function in few genomes
+            prot = base[f].copy()
+            mut = rng.random(prot_len) < p_mut
+            prot[mut] = rng.choice(alpha, size=int(mut.sum()))
+            body.append(f">fig|{100 + g}.1.peg.{f + 1} {names[f]}\n"
+                        f"{''.join(prot)}\n")
+        path = tmp / f"genome{g:02d}.fa"
+        path.write_text("".join(body))
+        paths.append(str(path))
+    return paths
+
+
+def _files_of(d):
+    """{relative path: bytes} of every file under ``d``."""
+    import os
+    out = {}
+    for root, _, files in os.walk(d):
+        for f in files:
+            full = os.path.join(root, f)
+            with open(full, "rb") as fh:
+                out[os.path.relpath(full, d)] = fh.read()
+    return out
+
+
+def check_builder(rng, tmp_path):
+    from close_kmers_tpu.db import builder as JB
+    from close_kmers_tpu_torch.db import builder as TB
+    files = annotated_genomes(rng, tmp_path)
+    defs = tmp_path / "defs.tsv"
+    defs.write_text("fig|100.1.peg.1\tFunction 0 # a comment\n")
+    keep = tmp_path / "keep.fa"
+    keep.write_text(">fig|999.1.peg.1 Kept function\n"
+                    + "".join(rng.choice(ALPHA, size=50)) + "\n")
+    assert TB.strip_func_comment("A # b") == JB.strip_func_comment("A # b")
+    assert TB.roles_of_function("A / B @ C; D") == \
+        JB.roles_of_function("A / B @ C; D")
+    got = []
+    for B in (JB, TB):
+        for kw in (dict(good_roles=["Role Y"]),
+                   dict(good_functions=["Function 1"], min_reps_required=3)):
+            r = B.build_signature_kmers(files, [str(keep)], [str(defs)], **kw)
+            out = tmp_path / f"{B.__name__}.{len(got)}"
+            r.write_data_dir(str(out), mem_map=True)
+            r.write_final_kmers(str(out / "extra.kmers"))
+            got.append((r.stats, r.fm.functions_by_index(),
+                        r.kept_kmer_strings(), vars(r.to_signature_db()),
+                        _files_of(out)))
+        x = B.build_signature_kmers_external(
+            files, [str(keep)], [str(defs)], 5, (), ["Role Y"],
+            work_dir=str(tmp_path / f"{B.__name__}.work"),
+            buffer_records=500)
+        out = tmp_path / f"{B.__name__}.external"
+        x.write_data_dir(str(out))
+        got.append((vars(x.to_signature_db()), _files_of(out)))
+    assert_same(got[:3], got[3:])
+    assert len(got[0][2]) > 200 and "Role X / Role Y" in got[0][1]
+
+
+def check_recall(rng, tmp_path):
+    from close_kmers_tpu.core.api import KmerEngine as JK
+    from close_kmers_tpu.db import builder as JB, recall as JR
+    from close_kmers_tpu_torch.core.api import KmerEngine as TK
+    from close_kmers_tpu_torch.db import recall as TR
+    files = annotated_genomes(rng, tmp_path, p_mut=0.08)
+    r = JB.build_signature_kmers(files, min_reps_required=3)
+    jdb = r.to_signature_db()
+    vdir = tmp_path / "valid"
+    (vdir / "anno").mkdir(parents=True)
+    (vdir / "seq").mkdir()
+    for i, f in enumerate(files[:3]):
+        text = open(f).read()
+        (vdir / "seq" / f"s{i}.fa").write_text(text + ">\nMKLV\n")
+        (vdir / "anno" / f"a{i}").write_text("".join(
+            f"{ln[1:].split()[0]}\t{'Function 2' if i else ln.split(' ', 1)[1]}"
+            f"\n" for ln in text.splitlines() if ln.startswith(">")))
+    got = []
+    for R, eng in ((JR, JK(jdb)), (TR, TK(as_port_db(jdb), "cpu"))):
+        out = tmp_path / R.__name__
+        R.run_recall(eng, r.fm, files, str(out), 3, 100)
+        text = io.StringIO()
+        totals = R.run_validation(eng, str(vdir), 3, 100, verbose=True,
+                                  out=text)
+        got.append((_files_of(out), text.getvalue(), totals))
+    assert_same(*got)
+    assert got[1][2]["correct"] > 5 and got[1][2]["incorrect"] > 0
+
+
+def check_propagate_names(rng, tmp_path):
+    from close_kmers_tpu.db import propagate_names as JP_
+    from close_kmers_tpu_torch.db import propagate_names as TP_
+    from test_propagate_names import write_release
+    fids = [f"fig|1.1.peg.{i}" for i in range(12)]
+    pegsyn = [(f"md5_{i}", [f]) for i, f in enumerate(fids)]
+    old_rows = [(f"GFOLD{i % 4}", f, f"fn{i % 4}", str(i % 4), "G")
+                for i, f in enumerate(fids[:10])]
+    new_rows = [(f"GFNEW{i % 5}", f, f"fn{i % 5}", str(i % 5), "G")
+                for i, f in enumerate(fids[2:])]
+    rel = {n: write_release(tmp_path, n, "G", pegsyn, rows)
+           for n, rows in (("old", old_rows), ("new", new_rows))}
+    got = []
+    for M in (JP_, TP_):
+        for fam_type in (M.GLOBAL, "local"):
+            fd = {}
+            for n, (fams, data) in rel.items():
+                fd[n] = M.FamData(fams, data, "", fam_type)
+                fd[n].read_pegsyn()
+                fd[n].read_fams_file()
+            rs = M.RenumberState(fd["old"], fd["new"])
+            got.append((rs.run(), rs.new_fam_name))
+    assert_same(got[:2], got[2:])
+    assert len(got[0][0]) > 3
+
+
+def check_kmc(rng, tmp_path):
+    from close_kmers_tpu.io import kmc as JKM
+    from close_kmers_tpu_torch.io import kmc as TKM
+    items = sorted({("".join(rng.choice(list("ACGT"), size=9)),
+                     int(rng.integers(1, 70000))) for _ in range(300)})
+    for src, dst in ((JKM, TKM), (TKM, JKM)):
+        for p, cs in ((2, 1), (4, 4)):
+            base = str(tmp_path / f"{src.__name__}.{p}")
+            src.write_kmc_db(base, items, kmer_length=9,
+                             lut_prefix_length=p, counter_size=cs)
+            assert dst.is_kmc_db(base) and dst.is_kmc_db(base + ".kmc_suf")
+            assert_same(vars(JKM.read_kmc_info(base)),
+                        vars(TKM.read_kmc_info(base)))
+            assert list(dst.read_kmc_db(base)) == \
+                list(src.read_kmc_db(base + ".kmc_pre"))
+    assert not TKM.is_kmc_db(str(tmp_path / "none"))
+
+
+def canned_server(response: bytes):
+    """A one-thread TCP server on localhost answering every connection
+    with ``response`` after reading the request's header and body.
+    Returns (port, requests seen, stop)."""
+    import socket
+    import threading
+    srv = socket.create_server(("127.0.0.1", 0))
+    seen = []
+
+    def serve():
+        while True:
+            try:
+                conn, _ = srv.accept()
+            except OSError:
+                return
+            with conn:
+                data = b""
+                while b"\n\n" not in data:
+                    data += conn.recv(65536)
+                head, body = data.split(b"\n\n", 1)
+                n = int(head.split(b"Content-length: ")[1].split(b"\n")[0])
+                while len(body) < n:
+                    body += conn.recv(65536)
+                seen.append(head + b"\n\n" + body)
+                conn.sendall(response)
+
+    t = threading.Thread(target=serve, daemon=True)
+    t.start()
+
+    def stop():
+        srv.close()
+        t.join(10)
+    return srv.getsockname()[1], seen, stop
+
+
+def check_kclient(rng, tmp_path):
+    from close_kmers_tpu.cli import kclient as JKC
+    from close_kmers_tpu_torch.cli import kclient as TKC
+    body = tmp_path / "q.fa"
+    body.write_bytes(b"".join(b">p%d\n%s\n" % (i, p.encode())
+                              for i, p in enumerate(random_prots(rng, 40))))
+    port, seen, stop = canned_server(
+        b"HTTP/1.1 200 OK\n\nHIT\t1\t2\t3\tfnA\nCALL\tx\n")
+    try:
+        got = [M.stream_request("127.0.0.1", port, "/query?details=1",
+                                str(body), chunk=1000) for M in (JKC, TKC)]
+    finally:
+        stop()
+    assert got[0] == got[1] and "fnA" in got[1]
+    assert seen[0] == seen[1] and len(seen[0]) > body.stat().st_size
+
+
+def check_kmerge(rng, tmp_path):
+    from close_kmers_tpu.cli import kmerge as JKM
+    from close_kmers_tpu_torch.cli import kmerge as TKM
+    kdir = tmp_path / "KMERS"
+    kdir.mkdir()
+    kmers = ["".join(rng.choice(list("ACGT"), size=6)) for _ in range(30)]
+    for g in range(8):
+        pick = rng.choice(30, size=12, replace=False)
+        (kdir / f"k{g}").write_text("".join(
+            f"{kmers[i]}\t{int(rng.integers(1, 9))}\n" for i in pick))
+    (tmp_path / "res.list").write_text("k0\nk1\nk2\nk3\n")
+    (tmp_path / "sus.list").write_text("k4\nk5\nk6\nk7\n")
+    got = []
+    for M in (JKM, TKM):
+        for extra in ([], ["--use-kmer-counts"], ["-a", "-r", "3"],
+                      ["--no-header", "--max-files", "3"]):
+            out = tmp_path / f"{M.__name__}.{len(got)}.tsv"
+            assert M.main([str(tmp_path / "res.list"),
+                           str(tmp_path / "sus.list"), "-d", str(kdir),
+                           "-o", str(out)] + extra) == 0
+            got.append(out.read_text())
+    assert got[:4] == got[4:] and all(got)
+
+
+def check_propagate_names_cli(rng, tmp_path):
+    from close_kmers_tpu.cli import propagate_names as JPN
+    from close_kmers_tpu_torch.cli import propagate_names as TPN
+    from test_propagate_names import write_release
+    fids = [f"fig|2.1.peg.{i}" for i in range(9)]
+    pegsyn = [(f"m{i}", [f]) for i, f in enumerate(fids)]
+    old = write_release(tmp_path, "old", "G", pegsyn, [
+        (f"GFA{i % 3}", f, f"fn{i % 3}", str(i % 3), "G")
+        for i, f in enumerate(fids[:7])])
+    new = write_release(tmp_path, "new", "G", pegsyn, [
+        (f"GFB{i % 3}", f, f"fn{i % 3}", str(i % 3), "G")
+        for i, f in enumerate(fids) if i])
+    got = []
+    for M in (JPN, TPN):
+        log = tmp_path / f"{M.__name__}.log"
+        assert M.main(["global", *old, *new, "--log-file", str(log)]) == 0
+        got.append(log.read_text())
+    assert got[0] == got[1] and "NOW" in got[1]
+
+
 def check_metrics(rng, tmp_path):
     a, b = JM.Metrics(), TM.Metrics()
     for name in rng.choice(["requests", "proteins", "x/y"], size=20):
@@ -464,7 +708,11 @@ CHECKS = {"params": check_params, "encoder": check_encoder,
           "signature_db": check_signature_db, "family_db": check_family_db,
           "fasta": check_fasta, "native": check_native,
           "family": check_family, "metrics": check_metrics,
-          "dna": check_dna}
+          "dna": check_dna, "builder": check_builder,
+          "recall": check_recall, "propagate_names": check_propagate_names,
+          "kmc": check_kmc, "kclient": check_kclient,
+          "kmerge": check_kmerge,
+          "propagate_names_cli": check_propagate_names_cli}
 
 
 @pytest.mark.parametrize("module", list(CHECKS))
