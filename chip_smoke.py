@@ -3,7 +3,7 @@
 genome, /matrix, probe-gather, TpuEngine and build_signature_kmers paths
 on one NVIDIA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--compare LABEL=DIR ...]
 
 Builds the CUDA kernels from ``close_kmers_tpu_torch/csrc`` (one nvcc per
 source, in parallel) and drives the port's main paths on the card, phase
@@ -20,11 +20,16 @@ card, and exits 1 without one.
    /fq_lookup ORF batch and on both sides of its route limit (W*D =
    8192 fused, 8193 sorted); probe_select again on the deep DB's sub
    blocks; and
-   best_call on the query batch's scan outputs (as the scan lays them
-   out), also at B in {1, 33, 4097} x W+1 in {2, 32, 33, 313} and on rows
-   of 0-63 calls (overflow flags past 32), timed as called and by launch
-   alone, L2 flushed, its bound the emit bytes once, 12 B a call it
-   reduces and 36 B a row written; and
+   best_call on the query and deep batches' scan outputs (as the scan
+   lays them out), also at B in {1, 33, 4097} x W+1 in BC_WIDTHS (1 to
+   1,017), on column slices of wider rows and on rows of 0-63 calls
+   (overflow flags past 32), timed as called and by launch alone, L2
+   flushed, beside the launch floor (a one-element fill_), its bound the
+   emit bytes once, 12 B a call it reduces and 36 B a row written, and
+   the wrapper's host cost split into its parts; with ``--compare
+   LABEL=DIR`` (e.g. the parent commit unpacked by ``git archive``) that
+   tree's best_call kernel and wrapper are timed in turns with this
+   one's; and
    the four probe-gather kernels at scripts/gather_exp.py's shapes
    (dma_gather: 2,490,000 ids from a [3.2M, 128] table; vgather:
    2,488,320 ids on a 448 x 128 tile; hbmstream: [3,198,976, 128] in
@@ -309,6 +314,57 @@ def cuda_ms_cold(fn, reps: int, flush) -> float:
     return sum(a.elapsed_time(b) for a, b in times) / reps
 
 
+def cuda_ms_cold_turns(fns: dict, reps: int, flush) -> dict:
+    """:func:`cuda_ms_cold` for each of ``fns`` ({name: fn}), the
+    functions taken in turns within each rep (in order, then in reverse
+    in the next rep), so that a drift of the card's clocks falls on all
+    alike; after a warm-up call of each and ~20 ms of flushes.  A ~0.1-ms
+    spin on the card follows each flush, so that the host's enqueue of
+    the call (tens of microseconds for a wrapper) is done before the card
+    reaches it and no wait for the host falls inside the timed span."""
+    import torch
+    for fn in fns.values():
+        fn()
+    for k in range(60):
+        flush.fill_(k)
+    keys = list(fns)
+    times = {k: [] for k in keys}
+    for r in range(reps):
+        for k in keys if r % 2 == 0 else keys[::-1]:
+            flush.fill_(r)
+            torch.cuda._sleep(200_000)
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fns[k]()
+            stop.record()
+            times[k].append((start, stop))
+    torch.cuda.synchronize()
+    return {k: sum(a.elapsed_time(b) for a, b in v) / reps
+            for k, v in times.items()}
+
+
+def graph_ms(fn, n: int = 20) -> float:
+    """Device milliseconds per call of ``fn`` back to back, L2 warm, free
+    of the host: ``n`` calls captured in one CUDA graph, one replay timed
+    by CUDA events after a warm-up replay."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(n):
+            fn()
+    g.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    g.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / n
+
+
 def sm_clocks_per_s() -> float:
     """The card's SM clocks a second: its SMs times their maximum clock
     (nvidia-smi clocks.max.sm).  Each SM's shared memory moves 32 banks x
@@ -465,9 +521,22 @@ def time_probe(flat, table, wd: int, n: int, flush, label: str):
     return got, rec
 
 
-def phase_kernels(T, ddb, off_d, len_d, params, flush):
+def scan_calls(T, S, ddb, off_d, len_d, params):
+    """The scan's emit and (count, function, weight) planes of one batch,
+    as best_call takes them on the device best-call path."""
+    hi, lo, valid = T.encode_windows(off_d, len_d)
+    found, fi, _oi, av, wt, _idx = T.probe_windows(ddb, hi, lo, valid)
+    emit, fields, _state = S.scan_score(
+        found, fi, av, wt, params.min_hits, params.min_weighted_hits,
+        params.max_gap, params.order_constraint)
+    return emit, fields[2], fields[3], fields[4]
+
+
+def phase_kernels(T, ddb, off_d, len_d, params, flush, deep_calls,
+                  compare):
     """Phase 2: each kernel against its plain version at the shapes the
-    main path gives it."""
+    main path gives it; best_call also on ``deep_calls`` (the deep cell's
+    batch, :func:`scan_calls`) and beside the versions in ``compare``."""
     import torch
     from close_kmers_tpu_torch.ops import best_call as BC
     from close_kmers_tpu_torch.ops import scan_score as S
@@ -512,7 +581,8 @@ def phase_kernels(T, ddb, off_d, len_d, params, flush):
             max_abs_err=err_s, ms=ms_s, launch_ms=launch_s,
             plain_ms=plain_ms_s, **bound_s, library_call=None,
             library_ms=None),
-        "best_call": best_call_record(BC, got_s[0], got_s[1], flush),
+        "best_call": best_call_record(BC, got_s[0], got_s[1], deep_calls,
+                                      flush, compare),
     }
 
 
@@ -1572,15 +1642,21 @@ def calls_case(rng, B: int, M: int, p_emit: float, n_funcs: int):
             rng.choice(w, size=(B, M)))
 
 
+BC_WIDTHS = (1, 2, 15, 16, 17, 32, 33, 313, 511, 512, 513, 1017)
+
+
 def best_call_sweep(BC, device) -> int:
     """best_call against its plain version at B in {1, 33, 4097} x W+1 in
-    {2, 32, 33, 313}, sparse and dense emits, and on a batch of 64 rows of
-    0 to 63 calls (past the 32-call cap from row 33 on), whose overflow
-    flags must say so.  Returns the number of cases held."""
+    BC_WIDTHS (one byte, both sides of a 16-B word, of the 32-call cap and
+    of a warp's 512-B round), sparse and dense emits; on column slices of
+    wider rows (row starts off 16-B alignment, strides not multiples of
+    16); and on a batch of 64 rows of 0 to 63 calls (past the 32-call cap
+    from row 33 on), whose overflow flags must say so.  Returns the number
+    of cases held."""
     import torch
     n = 0
     for B in (1, 33, 4097):
-        for M in (2, 32, 33, 313):
+        for M in BC_WIDTHS:
             for p_emit in (0.1, 0.95):
                 rng = np.random.default_rng(B * 1000 + M + int(p_emit * 10))
                 x = [torch.from_numpy(a).to(device)
@@ -1589,6 +1665,15 @@ def best_call_sweep(BC, device) -> int:
                 torch.cuda.synchronize()
                 max_abs_err([BC.best_call_plain(*x)], [got])
                 n += 1
+    for M in (16, 305, 513, 1017):
+        for col0, pad in ((1, 0), (7, 9), (15, 1)):
+            rng = np.random.default_rng(M * 100 + col0)
+            x = [torch.from_numpy(a).to(device)[:, col0:col0 + M]
+                 for a in calls_case(rng, 4097, col0 + M + pad, 0.1, 3)]
+            got = BC.best_call(*x)
+            torch.cuda.synchronize()
+            max_abs_err([BC.best_call_plain(*x)], [got])
+            n += 1
     rng = np.random.default_rng(64)
     emit, cnt, fi, wt = calls_case(rng, 64, 313, 0.0, 3)
     for r in range(64):
@@ -1602,24 +1687,131 @@ def best_call_sweep(BC, device) -> int:
     return n + 1
 
 
-def best_call_record(BC, emit, fields, flush) -> dict:
+def host_us(fn, n: int = 200) -> float:
+    """Host microseconds per call of ``fn``: the time to enqueue its work,
+    ``n`` calls between two synchronisations (few enough that the launch
+    queue never fills), the least of three runs."""
+    import torch
+    best = float("inf")
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        best = min(best, (time.perf_counter() - t0) / n * 1e6)
+        torch.cuda.synchronize()
+    return best
+
+
+def best_call_tree(root: str, label: str):
+    """best_call as the tree at ``root`` has it: its csrc/best_call.cu
+    built alone by nvcc into the port's .build/, and its ops/best_call.py
+    loaded as a module of its own that launches from that library.  To
+    time another version of the kernel and its wrapper (the parent
+    commit's, unpacked by ``git archive``) beside this tree's, in one
+    process on one card."""
+    import ctypes
+    import importlib.util
+    import subprocess
+    from close_kmers_tpu_torch.ops import _build
+    pkg = os.path.join(os.path.abspath(root), "close_kmers_tpu_torch")
+    os.makedirs(_build.BUILD_DIR, exist_ok=True)
+    lib_path = os.path.join(_build.BUILD_DIR, f"best_call_{label}.so")
+    proc = subprocess.run(
+        [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", lib_path,
+         os.path.join(pkg, "csrc", "best_call.cu")],
+        capture_output=True, text=True, timeout=600)
+    check(proc.returncode == 0, f"nvcc failed on {label}'s best_call.cu:\n"
+          f"{proc.stdout}{proc.stderr}")
+    lib = ctypes.CDLL(lib_path)
+    fns = {}
+
+    def kernel(name, argtypes):
+        if name not in fns:
+            fns[name] = getattr(lib, name)
+            fns[name].argtypes, fns[name].restype = argtypes, ctypes.c_int
+        return fns[name]
+
+    spec = importlib.util.spec_from_file_location(
+        f"close_kmers_tpu_torch.ops._best_call_{label}",
+        os.path.join(pkg, "ops", "best_call.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    mod._build = types.SimpleNamespace(kernel=kernel, check=_build.check)
+    return mod
+
+
+def best_call_record(BC, emit, fields, deep, flush, compare) -> dict:
     """Phase 2: best_call against its plain version on the query cell's
     scan outputs (the call planes as the scan lays them out: strided views
-    of one allocation), timed as the path calls it (the wrapper) and by
-    launch alone, L2 flushed, with its bound; then the sweep."""
+    of one allocation) and on the deep cell's ``deep``; timed as the path
+    calls it (the wrapper) and by launch alone, L2 flushed, beside the
+    launch floor (a one-element fill_, timed the same way), all in turns
+    (:func:`cuda_ms_cold_turns`); back to back with the L2 warm
+    (:func:`graph_ms`); its bound; the wrapper's host cost and its parts;
+    then the sweep.  ``compare`` maps labels to other versions
+    (:func:`best_call_tree`), held to the plain version and timed in the
+    same turns."""
     import torch
     args = (emit, fields[2], fields[3], fields[4])
-    got = BC.best_call(*args)
-    torch.cuda.synchronize()
-    err = max_abs_err([BC.best_call_plain(*args)], [got])
-    check(int((got[:, 0] > 0).sum()) > 0, "best_call found no function")
-    out = torch.empty_like(got)
+    versions = {"this": BC, **compare}
+    dev = emit.device
+    one = torch.empty(1, dtype=torch.int32, device=dev)
+    want = [BC.best_call_plain(*args), BC.best_call_plain(*deep)]
+    fns = {"floor": lambda: one.fill_(1)}
+    warm = {"floor": graph_ms(lambda: one.fill_(1))}
+    errs = {}
+    for label, mod in versions.items():
+        got = [mod.best_call(*args), mod.best_call(*deep)]
+        torch.cuda.synchronize()
+        errs[label] = max_abs_err(want, got)
+        out, out_d = torch.empty_like(got[0]), torch.empty_like(got[1])
+        fns[f"{label}/launch"] = (lambda m, o: lambda: m._launch(*args, o))(
+            mod, out)
+        fns[f"{label}/deep"] = (lambda m, o: lambda: m._launch(*deep, o))(
+            mod, out_d)
+        fns[f"{label}/called"] = (lambda m: lambda: m.best_call(*args))(mod)
+        warm[label] = graph_ms(fns[f"{label}/launch"])
+    check(int((want[0][:, 0] > 0).sum()) > 0, "best_call found no function")
+    cold = cuda_ms_cold_turns(fns, 40, flush)
+    host = {}
+    for label in [*versions, *reversed(versions)]:
+        host.setdefault(label, []).append(
+            host_us(lambda: versions[label].best_call(*args)))
+    fn = BC._build.kernel("ck_best_call_device", BC._ARGTYPES)
+    out = torch.empty_like(want[0], device=dev)
+    raw = (emit.data_ptr(), emit.stride(0), args[1].data_ptr(),
+           args[1].stride(0), args[2].data_ptr(), args[2].stride(0),
+           args[3].data_ptr(), args[3].stride(0), *emit.shape,
+           out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+
+    def guard():
+        with torch.cuda.device(dev):
+            pass
+
+    def times(label):
+        return dict(ms=cold[f"{label}/called"],
+                    launch_ms=cold[f"{label}/launch"],
+                    deep_launch_ms=cold[f"{label}/deep"],
+                    warm_ms=warm[label], host_us=host[label])
+
     rec = dict(
-        max_abs_err=err,
-        ms=cuda_ms_cold(lambda: BC.best_call(*args), 20, flush),
-        launch_ms=cuda_ms_cold(lambda: BC._launch(*args, out), 20, flush),
-        launch_warm_ms=cuda_ms(lambda: BC._launch(*args, out), 20),
-        plain_ms=cuda_ms(lambda: BC.best_call_plain(*args), 3))
+        max_abs_err=errs["this"], **times("this"), floor_ms=cold["floor"],
+        floor_warm_ms=warm["floor"],
+        plain_ms=cuda_ms(lambda: BC.best_call_plain(*args), 3),
+        host_parts_us=dict(
+            launch=host_us(lambda: BC._launch(*args, out)),
+            ctypes_call=host_us(lambda: fn(*raw)),
+            check=host_us(lambda: BC._check(*args)),
+            empty=host_us(lambda: torch.empty((emit.shape[0], 9),
+                                              dtype=torch.int32, device=dev)),
+            device_guard=host_us(guard),
+            current_device=host_us(torch.cuda.current_device),
+            stream_object=host_us(
+                lambda: torch.cuda.current_stream(dev).cuda_stream),
+            raw_stream=host_us(
+                lambda: torch._C._cuda_getCurrentRawStream(dev.index))),
+        compare={k: times(k) for k in compare})
     # the emit bytes once, 12 B (count, function, weight) for each call it
     # reduces (a row's first 32), 36 B a row written
     B, M = emit.shape
@@ -1627,17 +1819,82 @@ def best_call_record(BC, emit, fields, flush) -> dict:
     reduced = int(n_calls.clamp(max=BC.CAPC).sum())
     rec.update(bound(B * M + reduced * 12 + B * 36))
     n_sweep = best_call_sweep(BC, emit.device)
+    def calls_a_row(e):          # {calls: rows}, 33 standing for 33 or more
+        h = torch.bincount(e.sum(dim=1).clamp(max=BC.CAPC + 1)).tolist()
+        return {c: r for c, r in enumerate(h) if r}
+
+    rec["rows_by_calls"] = dict(query=calls_a_row(emit),
+                                deep=calls_a_row(deep[0]))
+    line = {k: {m: (round(v, 6) if isinstance(v, float)
+                    else [round(x, 2) for x in v]) for m, v in times(k).items()}
+            for k in versions}
     log(f"best_call: B={B} W+1={M}, {int(n_calls.sum())} calls, "
-        f"{int((n_calls > BC.CAPC).sum())} rows past the cap: wrapper "
-        f"{rec['ms']:.4f} ms, launch alone {rec['launch_ms']:.4f} ms (L2 "
-        f"flushed; warm {rec['launch_warm_ms']:.4f}), plain "
-        f"{rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.5f} ms, "
-        f"max_abs_err {err}; {n_sweep} sweep cases (B x W+1 x sparse/dense,"
-        f" and rows of 0-63 calls) equal")
+        f"{int((n_calls > BC.CAPC).sum())} rows past the cap, deep batch "
+        f"{int(deep[0].sum())} calls; rows by calls "
+        f"{json.dumps(rec['rows_by_calls'])}; in turns, L2 flushed (ms = as called, "
+        f"launch_ms and deep_launch_ms by launch alone; warm_ms back to back "
+        f"in a CUDA graph; host_us the wrapper's host time a call): "
+        f"{json.dumps(line)}; launch floor {rec['floor_ms']:.6f} ms (warm "
+        f"{rec['floor_warm_ms']:.6f}), plain {rec['plain_ms']:.4f} ms, bound "
+        f"{rec['bound_ms']:.5f} ms, max_abs_err {errs}; host us of the "
+        f"wrapper's parts "
+        f"{json.dumps({k: round(v, 2) for k, v in rec['host_parts_us'].items()})}"
+        f"; {n_sweep} sweep cases (B x W+1 x sparse/dense, column slices, "
+        f"rows of 0-63 calls) equal")
     return dict(name="best_call", route="cuda",
                 source="close_kmers_tpu_torch/csrc/best_call.cu",
                 replaces="close_kmers_tpu/core/device_score.py:223", **rec,
                 library_call=None, library_ms=None)
+
+
+def host_profile(fn) -> dict:
+    """Where one call of ``fn`` spends its time: its wall seconds with
+    the garbage collector on (the collections it ran by generation, with
+    their seconds) and off; the card's busy ms under torch.profiler
+    (:func:`device_share`); the six functions of most own time under
+    cProfile."""
+    import cProfile
+    import gc
+    import pstats
+    import torch
+    runs = {g: [0, 0.0] for g in range(3)}
+    t = [0.0]
+
+    def cb(phase, info):
+        if phase == "start":
+            t[0] = time.perf_counter()
+        else:
+            runs[info["generation"]][0] += 1
+            runs[info["generation"]][1] += time.perf_counter() - t[0]
+
+    torch.cuda.synchronize()
+    gc.callbacks.append(cb)
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    gc.callbacks.remove(cb)
+    gc.disable()
+    try:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_off = time.perf_counter() - t0
+    finally:
+        gc.enable()
+    prof = cProfile.Profile()
+    prof.enable()
+    fn()
+    torch.cuda.synchronize()
+    prof.disable()
+    stats = pstats.Stats(prof).stats
+    top = sorted(stats.items(), key=lambda kv: -kv[1][2])[:6]
+    return dict(wall_s=wall, gc={g: dict(n=n, s=s) for g, (n, s) in
+                                 runs.items()},
+                wall_gc_off_s=wall_off,
+                device=device_share(fn),
+                top=[(f"{os.path.basename(k[0])}:{k[1]} {k[2]}", v[2])
+                     for k, v in top])
 
 
 def phase_best_calls(T, ds, db, chunks, slim_natives, params, label, card):
@@ -1689,6 +1946,8 @@ def phase_best_calls(T, ds, db, chunks, slim_natives, params, label, card):
     n_ovf = int(sum(int(p[:, 8].sum()) for p in packs))
     named = sum(1 for w in want if w.function)
     rates = {k: n_query / sorted(v)[1] for k, v in spent.items()}
+    prof = {k: host_profile(passes[k])
+            for k in ("device_objects", "slim_objects")}
     log(f"phase 4 {label}: DeviceScorer.best_calls_batch: {n_query} "
         f"BestCalls equal the slim pack + native.best_call_batch ({named} "
         f"named, {n_ovf} rows past the device cap, {per_pass} best_call "
@@ -1698,6 +1957,12 @@ def phase_best_calls(T, ds, db, chunks, slim_natives, params, label, card):
         f"BestCalls: best_calls_batch {rates['device_objects']:.0f}, slim "
         f"pack + native + finish_best_call {rates['slim_objects']:.0f}; "
         f"{card}")
+    for k, p in prof.items():
+        log(f"phase 4 {label}: one {k} pass: wall {p['wall_s']:.4f} s, "
+            f"{p['wall_gc_off_s']:.4f} s with the garbage collector off; "
+            f"collections by generation {json.dumps(p['gc'])}; card busy "
+            f"{p['device']['busy_ms']} ms of {p['device']['wall_ms']:.1f} ms "
+            f"profiled; cProfile's top own times (s) {json.dumps(p['top'])}")
     rates["launches"] = per_pass
     return rates
 
@@ -1925,7 +2190,16 @@ def phase_build_db() -> int:
         shutil.rmtree(work, ignore_errors=True)
 
 
-def main() -> int:
+def main(argv: list[str]) -> int:
+    """``argv``: optional ``--compare LABEL=DIR`` pairs, each a tree (e.g.
+    the parent commit unpacked by ``git archive``) whose best_call kernel
+    and wrapper phase 2 times in turns with this tree's."""
+    if len(argv) % 2 or any(f != "--compare" or "=" not in v
+                            for f, v in zip(argv[::2], argv[1::2])):
+        print("usage: chip_smoke.py [--compare LABEL=DIR ...]",
+              file=sys.stderr)
+        return 2
+    trees = dict(v.split("=", 1) for v in argv[1::2])
     try:
         import torch
     except ImportError:
@@ -2041,13 +2315,17 @@ def main() -> int:
     off_d = torch.from_numpy(offsets[:BATCH]).to(device)
     len_d = torch.from_numpy(lengths[:BATCH]).to(device)
     flush = torch.empty(64 << 20, dtype=torch.int32, device=device)
-    kernels = phase_kernels(T, ds.ddb, off_d, len_d, params, flush)
+    d_off_b = torch.from_numpy(d_off[:BATCH]).to(device)
+    d_len_b = torch.from_numpy(d_len[:BATCH]).to(device)
+    compare = {k: best_call_tree(v, k) for k, v in trees.items()}
+    kernels = phase_kernels(
+        T, ds.ddb, off_d, len_d, params, flush,
+        scan_calls(T, S, ds_deep.ddb, d_off_b, d_len_b, params), compare)
     reads, n_orfs, fq_chunk = make_reads(host, eng, offsets)
     kernels.update(phase_family_kernels(T, TF, dfs, off_d, len_d, fq_chunk,
                                         flush))
     kernels["probe_select"]["sub_blocks"] = phase_sub_select(
-        T, ds_deep.ddb, torch.from_numpy(d_off[:BATCH]).to(device),
-        torch.from_numpy(d_len[:BATCH]).to(device), flush)
+        T, ds_deep.ddb, d_off_b, d_len_b, flush)
     kernels["probe_select"]["genome"], kernels["scan_score"]["genome"] = \
         phase_genome_kernels(T, TG, S, eng.fa.ddb,
                              torch.from_numpy(g_digits).to(device), g_n,
@@ -2143,4 +2421,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

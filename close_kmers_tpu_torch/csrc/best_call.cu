@@ -9,14 +9,42 @@
 // two argsort left-packs, a stable sort and four lax.scans over the packed
 // stream), which _probe_best_jit runs on the scan's [B, W+1] outputs.
 //
-// Design: one warp per row, eight rows a block.
-//  * Left-pack: the warp reads the row's emit bytes 32 at a time, one byte a
-//    lane (coalesced), and a ballot gives each emitted call its slot
-//    (the calls before it: popc of the ballot below the lane, plus the
-//    earlier chunks' count).  The first 32 slots take their column in
-//    shared memory; the walk stops as soon as more than 32 calls are seen,
-//    which is all the overflow flag needs.
+// Bound: bytes, and below them the launch.  Per row it reads the emit
+// bytes until its 33rd call (all W+1 of them on a row with at most 32
+// calls), 12 B for each of the first 32 calls, and writes 36 B.  At the
+// query cell's 4096 x 305 with ~1 call a row that is ~1.4 MB, ~0.0004 ms
+// at 3.35 TB/s: far below what any launch costs, so the kernel's time is
+// its launch plus the longest chain of dependent steps of one row.
+//
+// What held the first design back: its left-pack read a row 32 bytes a
+// round, one byte a lane, and stopped once more than 32 calls were seen.
+// The stop made each round's load wait for the previous round's ballot,
+// so a row of at most 32 calls (nearly every row) walked its W+1 bytes as
+// ceil((W+1)/32) dependent device-memory round trips: 10 at W+1 = 305.
+//
+// Design: one warp per row, eight rows a block (4096 rows are 512 blocks of
+// 256 threads: one wave on 132 SMs).  A row costs two dependent round
+// trips, one for its emit bytes and one for its calls' fields; the batch
+// waits for its slowest row, one of 2 or more calls when there is one (the
+// scalar reductions below).  On an H100 (700 W) this took the query cell's
+// launch from 0.0118 to 0.0087-0.0090 ms with the L2 flushed, where a
+// one-element fill_ takes 0.0058-0.0081 (chip_smoke.py, PERF.md).
+//  * Left-pack in one round: lane l loads the l-th 16-B aligned word that
+//    covers the row, so the warp's loads span 512 B at once and every row
+//    of up to 497 bytes comes in one load a lane, whatever the alignment
+//    of its start (the scan's emit rows are W+1 bytes apart).  Bytes outside
+//    [row start, row start + M) are masked; an aligned word holding one
+//    byte of the row lies in a mapped page.  Each lane makes a 16-bit mask
+//    of its nonzero bytes in the row, a shuffle scan of their counts gives
+//    the slot of its first call, and it writes its calls' columns to the
+//    slots below 32.  Longer rows loop, the next
+//    512 B requested before this round's are counted; the walk stops once
+//    more than 32 calls are seen, which is all the overflow flag needs.
 //  * Gather: lane k reads call k's count, function and weight.
+//  * A row of 0 or 1 call (nearly every row of the query cell) writes its
+//    pack at once: the reductions below pass a single call through
+//    unchanged (no add, so a -0.0 weight stays -0.0), and drop it when its
+//    function reaches the totals' sort key of no entry (2^30).
 //  * The reductions are sequential control flow with data-dependent
 //    branches over at most 32 entries, so every lane of the warp runs the
 //    same scalar state machines in lock step, reading the entries from
@@ -29,13 +57,6 @@
 //    math, nothing to contract), and the heap's comparisons are the strict
 //    ">" of the reference, so the [B, 9] pack equals the XLA one bit for
 //    bit, -0.0 and +0.0 apart.
-//
-// Bound: bytes.  Per row it reads the emit bytes until its 33rd call (all
-// W+1 of them on a row with at most 32 calls), 12 B for each of the first 32
-// calls, and writes 36 B.  At the query cell's 4096 x 305 with ~1 call a row
-// that is ~1.4 MB, ~0.0004 ms at 3.35 TB/s: far below one launch, so the
-// kernel's time is its launch and one row's chain of dependent steps (the
-// emit chunks read one after another, then the scalar reductions).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -46,6 +67,30 @@ constexpr int kCapc = 32;             // call stream cap (device_score.py:239)
 constexpr int kRowsPerBlock = 8;
 constexpr int32_t kBig = 1 << 30;     // the totals' sort key of no entry
 constexpr unsigned kFull = 0xffffffffu;
+constexpr int kWord = 16;             // bytes of one lane's emit load
+constexpr int kReach = 32 * kWord;    // bytes of one round of a warp's loads
+
+// The aligned 16-B word at `a` (all zero from the row's end on).
+__device__ __forceinline__ uint4 row_word(uintptr_t a, uintptr_t end) {
+  return a < end ? __ldg(reinterpret_cast<const uint4*>(a))
+                 : make_uint4(0u, 0u, 0u, 0u);
+}
+
+// Bit j set where byte j of the 16-B word `w` is not 0.
+__device__ __forceinline__ uint32_t nonzero_bytes(uint4 w) {
+  const uint32_t x[4] = {w.x, w.y, w.z, w.w};
+  uint32_t m = 0;
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    uint32_t t = x[u] | (x[u] >> 4);
+    t |= t >> 2;
+    t |= t >> 1;
+    // bit 8j of t is set where byte j is not 0; the product gathers the
+    // four into bits 28-31
+    m |= (((t & 0x01010101u) * 0x10204080u) >> 28) << (4 * u);
+  }
+  return m;
+}
 
 struct Entry {
   int32_t fi;
@@ -144,24 +189,59 @@ best_call_kernel(const uint8_t* __restrict__ emit, int64_t emit_rs,
   if (row >= B) return;                     // the whole warp leaves together
   WarpLists& L = lists[warp];
 
-  // left-pack the first kCapc emitted columns; n counts the calls seen
-  const uint8_t* e = emit + row * emit_rs;
+  // left-pack the first kCapc emitted columns; n counts the calls seen.
+  // Lane l holds the word at a: columns off .. off + 15 of the row.
+  const uintptr_t s = reinterpret_cast<uintptr_t>(emit + row * emit_rs);
+  const uintptr_t end = s + static_cast<uintptr_t>(M);
+  uintptr_t a = (s & ~static_cast<uintptr_t>(kWord - 1)) + lane * kWord;
+  uint4 w = row_word(a, end);
   int n = 0;
-  for (int c0 = 0; c0 < M && n <= kCapc; c0 += 32) {
-    const int c = c0 + lane;
-    const bool v = c < M && e[c] != 0;
-    const unsigned bal = __ballot_sync(kFull, v);
-    const int k = n + __popc(bal & ((1u << lane) - 1u));
-    if (v && k < kCapc) L.col[k] = c;
-    n += __popc(bal);
+  for (uintptr_t g = a - lane * kWord; g < end; g += kReach, a += kReach) {
+    const uint4 next = row_word(a + kReach, end);   // in flight meanwhile
+    const int off = static_cast<int>(static_cast<int64_t>(a) -
+                                     static_cast<int64_t>(s));
+    const int lo = min(max(-off, 0), kWord);      // the row's bytes in
+    const int hi = min(max(M - off, 0), kWord);   // the word: [lo, hi)
+    uint32_t m = nonzero_bytes(w) & ((1u << hi) - (1u << lo));
+    const int cnt = __popc(m);
+    int incl = cnt;   // calls of lanes 0..lane this round
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int t = __shfl_up_sync(kFull, incl, d);
+      if (lane >= d) incl += t;
+    }
+    for (int k = n + incl - cnt; m != 0 && k < kCapc; m &= m - 1, ++k)
+      L.col[k] = off + __ffs(m) - 1;
+    n += __shfl_sync(kFull, incl, 31);
+    if (n > kCapc) break;
+    w = next;
   }
   __syncwarp();
   const int np = n < kCapc ? n : kCapc;
+  Entry mine{0, 0, 0.f};
   if (lane < np) {
     const int c = L.col[lane];
-    L.calls[lane] = Entry{c_fi[row * fi_rs + c], c_cnt[row * cnt_rs + c],
-                          c_wt[row * wt_rs + c]};
+    mine = Entry{c_fi[row * fi_rs + c], c_cnt[row * cnt_rs + c],
+                 c_wt[row * wt_rs + c]};
   }
+  if (np <= 1) {
+    // 0 or 1 call: the reductions below would pass it through unchanged
+    const int32_t fi = __shfl_sync(kFull, mine.fi, 0);
+    const int32_t cnt = __shfl_sync(kFull, mine.cnt, 0);
+    const int32_t wt = __shfl_sync(kFull, __float_as_int(mine.wt), 0);
+    const bool one = np == 1 && fi < kBig;
+    int32_t v = 0;
+    switch (lane) {
+      case 0: v = one; break;
+      case 1: case 4: v = one ? fi : 0; break;
+      case 2: case 5: v = one ? cnt : 0; break;
+      case 3: case 6: v = one ? wt : 0; break;
+      default: break;      // v2c and the overflow flag are 0
+    }
+    if (lane < 9) out[row * 9 + lane] = v;
+    return;
+  }
+  if (lane < np) L.calls[lane] = mine;
   __syncwarp();
 
   // collapse adjacent same-function calls (kguts.cc:1023-1040), each group

@@ -175,10 +175,11 @@ def _check(emit, c_cnt, c_fi, c_wt) -> torch.device:
                               for t in (c_cnt, c_fi, c_wt)):
         raise ValueError("emit, c_cnt, c_fi and c_wt must share one [B, M] "
                          "shape")
-    devs = {t.device for t in (emit, c_cnt, c_fi, c_wt)}
-    if len(devs) != 1:
-        raise ValueError(f"tensors on several devices: {devs}")
-    return devs.pop()
+    dev = emit.device
+    if any(t.device != dev for t in (c_cnt, c_fi, c_wt)):
+        raise ValueError("tensors on several devices: "
+                         f"{[t.device for t in (emit, c_cnt, c_fi, c_wt)]}")
+    return dev
 
 
 def best_call(emit, c_cnt, c_fi, c_wt):
@@ -203,14 +204,18 @@ def best_call(emit, c_cnt, c_fi, c_wt):
 def _launch(emit, c_cnt, c_fi, c_wt, out):
     """The kernel launch alone, on checked CUDA tensors whose rows are
     contiguous and an allocated [B, 9] int32 ``out``."""
-    dev = emit.device
     B, M = emit.shape
     fn = _build.kernel("ck_best_call_device", _ARGTYPES)
-    with torch.cuda.device(dev):
-        rc = fn(emit.data_ptr(), emit.stride(0), c_cnt.data_ptr(),
-                c_cnt.stride(0), c_fi.data_ptr(), c_fi.stride(0),
-                c_wt.data_ptr(), c_wt.stride(0), B, M, out.data_ptr(),
-                torch.cuda.current_stream(dev).cuda_stream)
+    idx = emit.get_device()
+    args = (emit.data_ptr(), emit.stride(0), c_cnt.data_ptr(),
+            c_cnt.stride(0), c_fi.data_ptr(), c_fi.stride(0),
+            c_wt.data_ptr(), c_wt.stride(0), B, M, out.data_ptr(),
+            torch._C._cuda_getCurrentRawStream(idx))
+    if idx == torch.cuda.current_device():
+        rc = fn(*args)
+    else:            # the runtime launches on the calling thread's device
+        with torch.cuda.device(idx):
+            rc = fn(*args)
     _build.check(rc, "ck_best_call_device")
     best_call.launches += 1
 

@@ -56,8 +56,10 @@ def random_case(rng, B, M, p_emit, n_funcs):
     return emit, cnt, fi, wt
 
 
-@pytest.mark.parametrize("B,M", [(1, 2), (40, 2), (64, 17), (64, 32),
-                                 (64, 33), (48, 64), (16, 313)])
+@pytest.mark.parametrize("B,M", [(1, 2), (40, 2), (24, 15), (24, 16),
+                                 (64, 17), (64, 32), (64, 33), (48, 64),
+                                 (16, 313), (8, 511), (8, 512), (8, 513),
+                                 (4, 1017)])
 @pytest.mark.parametrize("p_emit", [0.05, 0.4, 0.95])
 def test_plain_matches_jax_random(B, M, p_emit):
     rng = np.random.default_rng(B * 1000 + M + int(p_emit * 100))
@@ -104,11 +106,12 @@ CONSTRUCTED = [
 ]
 
 
-@pytest.mark.parametrize("M", [20, 32, 33, 313])
+@pytest.mark.parametrize("M", [15, 16, 17, 20, 32, 33, 313, 511, 512, 513,
+                               1017])
 def test_plain_matches_jax_constructed(M):
     """Ties, bridges, full-tie triples, collapses, signed zeros, and rows
     of exactly 32 and 33 calls (the cap and one past it), at M up to and
-    past the cap."""
+    past the cap and across the kernel's 16-B words and 512-B rounds."""
     rows = [r for r in CONSTRUCTED if len(r) <= M]
     for n in (31, 32, 33, 40):
         if n <= M:
@@ -133,6 +136,41 @@ def test_strided_planes_match_contiguous():
     got = best_call(torch.from_numpy(emit), planes[2], planes[3],
                     planes[4].view(torch.float32))
     np.testing.assert_array_equal(got.numpy(), jax_pack(emit, cnt, fi, wt))
+
+
+@pytest.mark.parametrize("M", [513, 1017])
+def test_plain_matches_jax_33rd_call_far(M):
+    """Rows whose 33rd call lies past column 480 (the kernel's second
+    512-B round, or the last bytes of its first), beside rows of exactly
+    32 calls ending in the last column: only the first are flagged."""
+    rng = np.random.default_rng(M)
+    emit, cnt, fi, wt = random_case(rng, 8, M, 0.0, 3)
+    for r, last in enumerate((481, 496, 511, 512, M - 1, 500, 490, M - 1)):
+        emit[r, rng.choice(400, size=32 - (r == 7), replace=False)] = True
+        emit[r, last] = True            # row 7: 32 calls, the last at M - 1
+    want = jax_pack(emit, cnt, fi, wt)
+    np.testing.assert_array_equal(port_pack(emit, cnt, fi, wt), want)
+    assert want[:, 8].tolist() == [int(n > CAPC) for n in emit.sum(axis=1)]
+
+
+@pytest.mark.parametrize("col0", [1, 3, 15, 16])
+@pytest.mark.parametrize("M", [16, 305, 513])
+def test_offset_views_match_jax(col0, M):
+    """emit and the call planes as column slices of wider arrays: each
+    row starts ``col0`` bytes into rows of col0 + M + 21 (on and off 16-B
+    alignment, stride(0) != M), with calls in the first and last byte of
+    rows."""
+    rng = np.random.default_rng(col0 * 1000 + M)
+    W = col0 + M + 21
+    emit, cnt, fi, wt = random_case(rng, 12, W, 0.3, 3)
+    emit[0, col0] = emit[1, col0 + M - 1] = True
+    emit[2, col0], emit[2, col0 + M - 1] = True, True
+    sl = slice(col0, col0 + M)
+    views = [torch.from_numpy(x)[:, sl] for x in (emit, cnt, fi, wt)]
+    assert views[0].stride(0) != M
+    want = jax_pack(*(np.ascontiguousarray(x[:, sl])
+                      for x in (emit, cnt, fi, wt)))
+    np.testing.assert_array_equal(best_call(*views).numpy(), want)
 
 
 def test_wrapper_checks():

@@ -806,13 +806,17 @@ def _calls(rng, B, M, p_emit, n_funcs):
             rng.choice(BC_WEIGHTS, size=(B, M)))
 
 
+BC_WIDTHS = [1, 2, 15, 16, 17, 32, 33, 313, 511, 512, 513, 1017]
+
+
 @pytest.mark.parametrize("B", [1, 33, 4097])
-@pytest.mark.parametrize("M", [2, 32, 33, 313])
+@pytest.mark.parametrize("M", BC_WIDTHS)
 @pytest.mark.parametrize("p_emit", [0.1, 0.95])
 def test_best_call_kernel_matches_plain(cuda, B, M, p_emit):
     """The warp-per-row kernel at B of one row, one past a block's eight
-    rows and past 4096, and M below, at and past the 32-call cap (rows of
-    more than 32 calls at the high emit rate)."""
+    rows and past 4096, and M of one byte, on both sides of a 16-B word,
+    below, at and past the 32-call cap (rows of more than 32 calls at the
+    high emit rate) and on both sides of a warp's 512-B round."""
     rng = np.random.default_rng(B * 1000 + M + int(p_emit * 10))
     x = [torch.from_numpy(a) for a in _calls(rng, B, M, p_emit, 2 + M % 4)]
     want = best_call_plain(*x)
@@ -825,23 +829,27 @@ def test_best_call_kernel_matches_plain(cuda, B, M, p_emit):
         assert bool(want[:, 8].any())
 
 
-def test_best_call_kernel_constructed_rows(cuda):
-    """Rows of exactly 0, 1, 31, 32, 33 and 40 calls, full ties, bridges
-    that merge and not, signed zeros, on the scan's layout: the call
-    planes as strided views of one [5, B, W+1] allocation."""
+@pytest.mark.parametrize("M", [15, 16, 17, 313, 511, 512, 513, 1017])
+def test_best_call_kernel_constructed_rows(cuda, M):
+    """Rows of exactly 0, 1, 31, 32, 33 and 40 calls (those that fit in
+    M), full ties, bridges that merge and not, signed zeros, on the scan's
+    layout: the call planes as strided views of one [5, B, W+1]
+    allocation.  Calls every 7 columns from column 3, or every column
+    where 7 apart do not fit."""
     rows = [[], [(6, 1, 1.0)], [(6, 1, 1.0), (6, 2, 1.0)],
             [(7, 6, 2.0), (7, 7, 2.0), (7, 8, 2.0)],
             [(6, 1, 1.0), (4, 2, 1.0), (6, 1, 1.0)],
             [(6, 3, 1.0), (5, 4, 1.0), (6, 3, 1.0)],
             [(5, 2, -0.0), (5, 3, 0.0)]]
     rows += [[(1 + k % 5, k % 3, float(BC_WEIGHTS[k % 6])) for k in range(n)]
-             for n in (31, 32, 33, 40)]
-    B, M = len(rows), 313
+             for n in (31, 32, 33, 40) if n <= M]
+    B = len(rows)
     emit = torch.zeros((B, M), dtype=torch.bool)
     planes = torch.zeros((5, B, M), dtype=torch.int32)
     wt = planes[4].view(torch.float32)
     for r, calls in enumerate(rows):
-        for c, (n, f, w) in zip(range(3, M, 7), calls):
+        cols = range(3, M, 7) if 3 + 7 * len(calls) <= M else range(M)
+        for c, (n, f, w) in zip(cols, calls):
             emit[r, c] = True
             planes[2, r, c], planes[3, r, c], wt[r, c] = n, f, w
     want = best_call_plain(emit, planes[2], planes[3], wt)
@@ -850,6 +858,42 @@ def test_best_call_kernel_constructed_rows(cuda):
     got = best_call(emit.to(cuda), pg[2], pg[3], pg[4].view(torch.float32))
     torch.cuda.synchronize()
     assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("M", BC_WIDTHS)
+@pytest.mark.parametrize("col0,pad", [(0, 0), (0, 3), (1, 0), (7, 9),
+                                      (15, 1), (16, 16)])
+def test_best_call_kernel_views_and_edges(cuda, M, col0, pad):
+    """emit and the call planes as column slices starting ``col0`` bytes
+    into rows of col0 + M + pad, so row starts fall on and off 16-B
+    alignment (row strides of multiples of 16 and not), with rows whose
+    calls sit in the first byte, the last byte or both, rows of one call,
+    and rows whose 33rd call lies past column 480."""
+    rng = np.random.default_rng(M * 100 + col0 * 10 + pad)
+    B, W = 70, col0 + M + pad
+    emit, cnt, fi, wt = _calls(rng, B, W, 0.3 if M > 1 else 0.5, 3)
+    emit[:8] = False
+    emit[0, col0] = emit[1, col0 + M - 1] = True
+    emit[2, col0] = emit[2, col0 + M - 1] = True
+    emit[3, col0 + M // 2] = True
+    if M > 481:
+        emit[4, col0 + rng.choice(400, size=32, replace=False)] = True
+        emit[4, col0 + 481 + rng.integers(0, M - 481)] = True
+        emit[5, col0 + rng.choice(480, size=32, replace=False)] = True
+        emit[5, col0 + M - 1] = True
+    x = [torch.from_numpy(a) for a in (emit, cnt, fi, wt)]
+    planes = torch.stack([x[1], x[2], x[3].view(torch.int32)])
+    sl = slice(col0, col0 + M)
+    cpu = [x[0][:, sl], planes[0][:, sl], planes[1][:, sl],
+           planes[2].view(torch.float32)[:, sl]]
+    want = best_call_plain(*cpu)
+    e_g, p_g = x[0].to(cuda), planes.to(cuda)
+    got = best_call(e_g[:, sl], p_g[0][:, sl], p_g[1][:, sl],
+                    p_g[2].view(torch.float32)[:, sl])
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+    if M > 481:
+        assert want[4:6, 8].tolist() == [1, 1]
 
 
 def test_best_calls_batch_on_card_matches_cpu(cuda):
