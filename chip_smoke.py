@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the torch port's /query (with device best-call), family,
-genome, /matrix, probe-gather, TpuEngine and build_signature_kmers paths
-on one NVIDIA card.
+genome, /matrix, probe-gather, TpuEngine, sharded serving and
+build_signature_kmers paths on one NVIDIA card.
 
     python3 chip_smoke.py [--compare LABEL=DIR ...]
 
@@ -128,6 +128,25 @@ card, and exits 1 without one.
      genome), --min-reps-required 5, recall and validation with
      --device cuda, and the same CLI with --device cpu, in two processes
      at the same time: byte-identical files and lines.
+   * sharded (parallel/sharding.py): the query DB and its family table
+     range-sharded over four entries on card 0, meshes (1, 4) and
+     (2, 2), routed and replicated: serve_step_sharded on all 65,536
+     proteins with family rows, each best pack equal to
+     DeviceScorer.best_batch_packed and each rollup (parsed) to
+     DeviceFamilyScorer.rollup; ShardedEngine.probe_compact equal to
+     FastAnnotator's; probe_routed equal to probe_sharded at the default
+     capacity and at a forced-overflow one; the step's proteins/s beside
+     best_batch_packed's (interleaved, median of 3), one pass profiled by
+     stage (torch.profiler ranges: encode, route, probe, family rows,
+     exchange, scan, best_call, rollup), the kernels' launches a pass;
+     the deep DB on (1, 4) through each shard's sub blocks; the golden
+     conversations through 4-shard kser contexts (all replicated,
+     /lookup and /query best calls routed); a one-rank NCCL group
+     (multihost.initialize, pod_mesh (1, 1)) whose routed and replicated
+     steps equal the single-card pack.  Its launch counts are set to 0
+     just before it and read just after: the five kernels of the path
+     (probe_select, scan_score, row_gather, family_group, best_call) must
+     each have launched in the sharded calls themselves.
 5. All ten kernels' launch counters, reset just before phases 3-4, must
    be above 0; probe_select must have launched on the deep DB's
    sub_blocks path, on the genome path (with scan_score) and on the
@@ -2190,6 +2209,380 @@ def phase_build_db() -> int:
         shutil.rmtree(work, ignore_errors=True)
 
 
+# -- the sharded serving step (parallel/sharding.py) on one card
+
+# the mesh shapes of the sharded phase, each over four entries on card 0
+SHARD_MESHES = ((1, 4), (2, 2))
+# families a protein's rollup row holds: up to 11 on the first 4,096
+# query proteins, past serve_step_sharded's default of 8
+SHARD_CAP = 32
+SHARD_KERNELS = ("probe_select", "scan_score", "row_gather", "family_group",
+                 "best_call")
+DEEP_SHARD_CHUNKS = 4
+
+
+def _bits(a) -> np.ndarray:
+    a = np.asarray(a)
+    return a.view(np.int32) if a.dtype == np.float32 else a
+
+
+class _Counted:
+    """Calls a function and adds the launches it made of each kernel of
+    ``wrappers`` to ``n``: the sharded calls' own launches, apart from
+    those of the single-card references beside them."""
+
+    def __init__(self, wrappers: dict):
+        self.w = wrappers
+        self.n = dict.fromkeys(wrappers, 0)
+
+    def __call__(self, fn, *a, **kw):
+        before = {k: f.launches for k, f in self.w.items()}
+        out = fn(*a, **kw)
+        for k, f in self.w.items():
+            self.n[k] += f.launches - before[k]
+        return out
+
+
+def stage_profile(fn, patches: dict) -> dict:
+    """One call of ``fn`` under torch.profiler with each ``patches``
+    entry ({stage: (owner, attribute)}) wrapped in a record_function
+    range of its name.  Returns the wall ms, the card's busy ms (its
+    kernels and copies), each stage's share of it (the kernels and
+    copies that ran inside the stage's ranges) and the rest ("other"),
+    the count of host-side ops recorded and the eight device names of
+    most time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    saved = []
+    for name, (owner, attr) in patches.items():
+        orig = getattr(owner, attr)
+
+        def wrap(*a, _orig=orig, _name=name, **kw):
+            with record_function(_name):
+                return _orig(*a, **kw)
+
+        # a kernel wrapper counts its launches on the module's name, now
+        # this range: they go back to its own count after the pass
+        wrap.launches = 0
+        setattr(owner, attr, wrap)
+        saved.append((owner, attr, orig, wrap))
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.time()
+            fn()
+            torch.cuda.synchronize()
+            wall = (time.time() - t0) * 1e3
+    finally:
+        for owner, attr, orig, wrap in saved:
+            setattr(owner, attr, orig)
+            if hasattr(orig, "launches"):
+                orig.launches += wrap.launches
+    # the device timeline holds each range as an annotation span (named
+    # after the stage) beside the kernels and copies; each kernel counts
+    # for the stage whose span holds its start, else for "other"
+    import bisect
+    spans, kernels = [], []
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            r = (e.time_range.start, e.time_range.end, e.name)
+            (spans if e.name in patches else kernels).append(r)
+    spans.sort()
+    starts = [a for a, _, _ in spans]
+    stages = dict.fromkeys(list(patches) + ["other"], 0.0)
+    by_name: dict[str, float] = {}
+    for a, b, name in kernels:
+        i = bisect.bisect_right(starts, a) - 1
+        stage = spans[i][2] if i >= 0 and a < spans[i][1] else "other"
+        stages[stage] += (b - a) / 1e3
+        by_name[name] = by_name.get(name, 0.0) + (b - a) / 1e3
+    busy = sum(by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    n_cpu_ops = sum(1 for e in prof.events()
+                    if e.device_type == DeviceType.CPU)
+    return dict(wall_ms=wall, busy_ms=busy, stages_ms=stages,
+                cpu_ops=n_cpu_ops,
+                top=[(name[:60], round(ms, 3)) for name, ms in top])
+
+
+def _stage_patches() -> dict:
+    from close_kmers_tpu_torch.core import device_family as DF
+    from close_kmers_tpu_torch.core import device_score as DS
+    from close_kmers_tpu_torch.ops import best_call as BC
+    from close_kmers_tpu_torch.parallel import sharding as SH
+    return {"encode": (SH, "encode_windows"),
+            "route (owner map, sort, send buffers)": (SH, "_route_send"),
+            "probe": (SH, "_probe_local_windows"),
+            "family rows (row_gather)": (DF, "_gather_fams"),
+            "exchange all_to_all": (SH.Mesh, "all_to_all"),
+            "exchange all_gather": (SH.Mesh, "all_gather"),
+            "exchange psum": (SH.Mesh, "psum"),
+            "home (outputs to the caller)": (SH.Mesh, "home"),
+            "scan": (DS, "_scan_score"),
+            "best_call": (BC, "best_call"),
+            "rollup": (DF, "rollup_from_fams")}
+
+
+def phase_sharded(TF, ds, eng, dfs, dbf, offsets, lengths, params, ds_deep,
+                  db_deep, d_off, d_len, wrappers, card) -> dict:
+    """Phase 4, sharded: the query corpus and its family universe
+    range-sharded over four entries on card 0, meshes (1, 4) and (2, 2),
+    routed and replicated: serve_step_sharded on all 65,536 proteins with
+    family rows (best pack equal to DeviceScorer.best_batch_packed, rollup
+    rows parsed equal to DeviceFamilyScorer.rollup), ShardedEngine.
+    probe_compact equal to FastAnnotator's, probe_routed equal to
+    probe_sharded at the default and at a forced-overflow capacity; the
+    step's proteins/s against best_batch_packed's (interleaved), one pass
+    profiled by stage, the launches of a pass; the deep DB on (1, 4)
+    through each shard's sub blocks.  Returns the phase's numbers and the
+    sharded calls' own launches."""
+    import torch
+    from close_kmers_tpu_torch.parallel import sharding as SH
+    dev0 = torch.device("cuda", 0)
+    count = _Counted({k: wrappers[k] for k in SHARD_KERNELS})
+    chunks = [(np.ascontiguousarray(offsets[a:a + BATCH]),
+               np.ascontiguousarray(lengths[a:a + BATCH]))
+              for a in range(0, N_QUERY, BATCH)]
+    fam_np = dfs.fdb.fam.cpu().numpy()
+    t0 = time.time()
+    want_best = [ds.best_batch_packed(o, n, params).cpu() for o, n in chunks]
+    want_roll = [dfs.rollup(o, n, fams_per_seq_cap=SHARD_CAP)
+                 for o, n in chunks]
+    log(f"phase 4 sharded: single-card references (best packs, rollups) "
+        f"for {N_QUERY} proteins in {time.time() - t0:.1f} s")
+    out = dict(rates={}, profiles={}, per_pass={})
+
+    def single_pass():
+        return [ds.best_batch_packed(o, n, params).cpu().numpy()
+                for o, n in chunks]
+
+    for shape in SHARD_MESHES:
+        mesh = SH.make_mesh(*shape, devices=[dev0] * 4)
+        t0 = time.time()
+        se = SH.ShardedEngine(dbf, mesh)
+        sdb = se.sdb
+        fam_sh = SH.shard_fam_table(fam_np, sdb)
+        torch.cuda.synchronize()
+        check(sdb.payload_wide is not None,
+              f"the {shape} shards did not take payload-wide rows")
+        log(f"phase 4 sharded {shape}: {sdb.n_shards} shards of <= {sdb.m:,}"
+            f" rows, payload-wide {sdb.payload_wide.shape}, family rows "
+            f"{fam_sh.shape}, built and placed in {time.time() - t0:.1f} s")
+        for routed in (True, False):
+            mode = "routed" if routed else "replicated"
+            n_ovf = 0
+            for i, (o, n) in enumerate(chunks):
+                best, ovf, drop, rows = count(
+                    SH.serve_step_sharded, sdb, o, n, params=params,
+                    fam_shards=fam_sh, cap_seq=SHARD_CAP, routed=routed)
+                check(torch.equal(best.cpu(), want_best[i]),
+                      f"sharded {shape} {mode} best pack differs from "
+                      f"best_batch_packed at chunk {i}")
+                got = TF.DeviceFamilyScorer.finish_rollup_rows(
+                    rows.cpu().numpy(), SHARD_CAP)
+                check(got is not None, f"sharded {shape} {mode} rollup "
+                      f"overflowed {SHARD_CAP} families a row at chunk {i}")
+                check(all(
+                    np.array_equal(_bits(a), _bits(b))
+                    for a, b in zip(got, want_roll[i])),
+                    f"sharded {shape} {mode} rollup differs from "
+                    f"DeviceFamilyScorer.rollup at chunk {i}")
+                check(int(drop.sum()) == 0,
+                      f"sharded {shape} {mode} dropped windows")
+                n_ovf += int(ovf.sum())
+            se.routed = routed
+            for i, (o, n) in enumerate(chunks[:2]):
+                hg = count(se.probe_compact, o, n)
+                hw = eng.fa.probe_compact(o, n)
+                check(all(np.array_equal(_bits(hg[k]), _bits(hw[k]))
+                          for k in hw),
+                      f"ShardedEngine {shape} {mode} probe_compact differs "
+                      f"from FastAnnotator's at chunk {i}")
+            log(f"phase 4 sharded {shape} {mode}: all {N_QUERY} proteins' "
+                f"best packs equal best_batch_packed, rollups equal "
+                f"DeviceFamilyScorer.rollup, probe_compact equal on "
+                f"{2 * BATCH}; {n_ovf} windows took the overflow fallback")
+        o, n = chunks[0]
+        rep = count(SH.probe_sharded, sdb, o, n)
+        for kw in ({}, dict(capacity_factor=0.5, ov_frac=1.0)):
+            rt = count(SH.probe_routed, sdb, o, n, **kw)
+            check(all(torch.equal(a.view(torch.int32) if a.is_floating_point()
+                                  else a, b.view(torch.int32)
+                                  if b.is_floating_point() else b)
+                      for a, b in zip(rep[:5], rt[:5])),
+                  f"probe_routed {kw} differs from probe_sharded on {shape}")
+            check(int(rt[8].sum()) == 0, f"probe_routed {kw} dropped")
+            if kw:
+                check(int(rt[7].sum()) > 0,
+                      "the forced capacity took no overflow fallback")
+                log(f"phase 4 sharded {shape}: probe_routed at capacity "
+                    f"factor 0.5 ({int(rt[7].sum())} windows through the "
+                    f"fallback) and at the default equal probe_sharded")
+
+        def sharded_pass(routed, fams):
+            def run():
+                return [SH.serve_step_sharded(
+                    sdb, o, n, params=params,
+                    fam_shards=fam_sh if fams else None,
+                    cap_seq=SHARD_CAP, routed=routed)[0].cpu().numpy()
+                    for o, n in chunks]
+            return run
+
+        passes = {"best_batch_packed": single_pass,
+                  "sharded routed": sharded_pass(True, False),
+                  "sharded replicated": sharded_pass(False, False)}
+        spent = {k: [] for k in passes}
+        for fn in passes.values():
+            fn()                                            # warm-up
+        for _ in range(3):
+            for name, fn in passes.items():
+                torch.cuda.synchronize()
+                t0 = time.time()
+                fn()
+                torch.cuda.synchronize()
+                spent[name].append(time.time() - t0)
+        rates = {k: N_QUERY / sorted(v)[1] for k, v in spent.items()}
+        out["rates"][shape] = rates
+        log(f"phase 4 sharded {shape}: proteins/s (median of 3, "
+            f"interleaved, upload to the [B, 9] pack home, no family "
+            f"rows) {json.dumps({k: round(v) for k, v in rates.items()})};"
+            f" passes (s) {json.dumps(spent)}; {card}")
+        for routed in (True, False):
+            mode = "routed" if routed else "replicated"
+            before = {k: wrappers[k].launches for k in SHARD_KERNELS}
+            sharded_pass(routed, True)()
+            out["per_pass"][(shape, mode)] = {
+                k: wrappers[k].launches - before[k] for k in SHARD_KERNELS}
+            prof = stage_profile(sharded_pass(routed, True),
+                                 _stage_patches())
+            out["profiles"][(shape, mode)] = prof
+            log(f"phase 4 sharded {shape} {mode}: one pass with family "
+                f"rows profiled: wall {prof['wall_ms']:.1f} ms, card busy "
+                f"{prof['busy_ms']:.2f} ms, by stage (device ms) "
+                f"{json.dumps({k: round(v, 3) for k, v in prof['stages_ms'].items()})}; "
+                f"{prof['cpu_ops']} host-side ops recorded; top device "
+                f"names {json.dumps(prof['top'])}; "
+                f"launches a pass {json.dumps(out['per_pass'][(shape, mode)])}")
+        del se, sdb, fam_sh
+        torch.cuda.empty_cache()
+
+    mesh = SH.make_mesh(1, 4, devices=[dev0] * 4)
+    t0 = time.time()
+    sdb = SH.ShardedDB.from_db(db_deep, mesh)
+    torch.cuda.synchronize()
+    check(sdb.sub_blocks is not None and sdb.payload_wide is None,
+          "the deep DB's shards did not take sub blocks")
+    log(f"phase 4 sharded deep (1, 4): sub blocks {sdb.sub_blocks.shape} "
+        f"(sub_w {sdb.sub_w}), header {sdb.sub_header.shape}, built and "
+        f"placed in {time.time() - t0:.1f} s")
+    before = wrappers["probe_select"].launches
+    for routed in (True, False):
+        for a in range(0, DEEP_SHARD_CHUNKS * BATCH, BATCH):
+            o = np.ascontiguousarray(d_off[a:a + BATCH])
+            n = np.ascontiguousarray(d_len[a:a + BATCH])
+            # the spelled queries' windows mostly fall in the last shard
+            # (random residues), past any uniform capacity: the drop-free
+            # one, and the default's drops counted
+            best, _, drop = count(SH.serve_step_sharded, sdb, o, n,
+                                  params=params, routed=routed,
+                                  capacity_factor=None)
+            want = ds_deep.best_batch_packed(o, n, params).cpu()
+            check(torch.equal(best.cpu(), want) and int(want[:, 0].sum())
+                  and int(drop.sum()) == 0,
+                  f"deep sharded best pack differs at chunk {a // BATCH}")
+    o = np.ascontiguousarray(d_off[:BATCH])
+    n = np.ascontiguousarray(d_len[:BATCH])
+    out["deep_default_drops"] = int(count(
+        SH.probe_routed, sdb, o, n)[8].sum())
+    out["deep_probe_launches"] = wrappers["probe_select"].launches - before
+    log(f"phase 4 sharded deep (1, 4): {DEEP_SHARD_CHUNKS * BATCH} spelled "
+        f"proteins routed (drop-free capacity) and replicated equal "
+        f"best_batch_packed on the single-card sub_blocks table; at the "
+        f"default capacity one batch drops {out['deep_default_drops']} "
+        f"windows (the skew the ShardedEngine ladder re-dispatches)")
+    del sdb
+    torch.cuda.empty_cache()
+    out["nccl"] = phase_nccl(SH, dbf, chunks, want_best, params, count)
+    out["launches"] = count.n
+    return out
+
+
+def phase_nccl(SH, dbf, chunks, want_best, params, count) -> str:
+    """Phase 4, sharded: a one-rank NCCL process group (multihost.
+    initialize at a free localhost port, pod_mesh (1, 1)) runs the routed
+    and replicated serving steps on the query DB; the best packs equal
+    best_batch_packed's.  Returns the group's backend."""
+    import torch
+    import torch.distributed as dist
+    from close_kmers_tpu_torch.parallel import multihost
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    check(multihost.initialize("cuda:0", f"127.0.0.1:{port}", 1, 0),
+          "multihost.initialize brought up no group")
+    try:
+        backend = dist.get_backend()
+        check(backend == "nccl", f"the card's group runs {backend}")
+        mesh = multihost.pod_mesh("cuda:0", 1, 1)
+        t0 = time.time()
+        sdb = SH.ShardedDB.from_db(dbf, mesh)
+        for routed in (True, False):
+            for i, (o, n) in enumerate(chunks[:2]):
+                best = count(SH.serve_step_sharded, sdb, o, n, params=params,
+                             routed=routed)[0]
+                check(torch.equal(best.cpu(), want_best[i]),
+                      f"the NCCL group's {'routed' if routed else 'replicated'}"
+                      f" best pack differs at chunk {i}")
+        torch.cuda.synchronize()
+        log(f"phase 4 sharded: one-rank {backend} group, mesh {mesh.shape}: "
+            f"routed and replicated steps on {2 * BATCH} proteins equal "
+            f"best_batch_packed ({time.time() - t0:.1f} s with the table "
+            f"build)")
+        del sdb
+    finally:
+        dist.destroy_process_group()
+    return backend
+
+
+def phase_sharded_golden() -> None:
+    """Phase 4, sharded: the golden conversations through kser contexts
+    whose engine probes the DB over four table shards on card 0: every
+    conversation replicated, /lookup and /query best calls routed."""
+    from close_kmers_tpu_torch.cli.kser import load_server_context
+    from close_kmers_tpu_torch.parallel.sharding import ShardedEngine
+    data = os.path.join(GOLDEN, "data")
+    with open(os.path.join(GOLDEN, "queries.fa"), "rb") as f:
+        body = f.read()
+    servers = []
+    try:
+        for routed, names in ((False, list(GOLDEN_CONVS)),
+                              (True, ["lookup", "query_best"])):
+            srv = _Server(load_server_context(
+                data, batch_size=64, n_shards=4, routed=routed,
+                device="cuda:0"))
+            servers.append(srv)
+            fa = srv.ctx.engine.fa
+            check(isinstance(fa, ShardedEngine) and fa.routed == routed
+                  and fa.mesh.shape == {"data": 1, "table": 4},
+                  "the sharded context did not build a sharded engine")
+            for name in names:
+                with open(os.path.join(GOLDEN, f"{name}.resp"), "rb") as f:
+                    want = f.read()
+                reqs = GOLDEN_CONVS[name](body)
+                got = b"".join(_http(srv.port, r) for r in (
+                    [reqs] if isinstance(reqs, bytes) else reqs))
+                check(got == want, f"sharded golden conversation {name} "
+                      f"({'routed' if routed else 'replicated'}) differs")
+            log(f"phase 4 sharded: golden {', '.join(names)} byte-identical "
+                f"through a 4-shard {'routed' if routed else 'replicated'} "
+                f"kser context on the card")
+    finally:
+        for srv in servers:
+            srv.close()
+
+
 def main(argv: list[str]) -> int:
     """``argv``: optional ``--compare LABEL=DIR`` pairs, each a tree (e.g.
     the parent commit unpacked by ``git archive``) whose best_call kernel
@@ -2369,12 +2762,40 @@ def main(argv: list[str]) -> int:
         host, T, ds_deep, eng_deep, db_deep, d_off, d_len, params, "deep",
         card)
     sub_launches = probe_select.launches - before
+
+    # -- the sharded serving path, its counts set to 0 just before it and
+    # read just after (then added back to the main path's)
+    saved = {name: fn.launches for name, fn in wrappers.items()}
+    for fn in wrappers.values():
+        fn.launches = 0
+    peak_before = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    shard = phase_sharded(TF, ds, eng, dfs, dbf, offsets, lengths, params,
+                          ds_deep, db_deep, d_off, d_len, wrappers, card)
+    phase_sharded_golden()
+    shard_peak = torch.cuda.max_memory_allocated()
+    shard_counts = {name: fn.launches for name, fn in wrappers.items()}
+    for name, fn in wrappers.items():
+        fn.launches += saved[name]
+    log(f"phase 4 sharded: {time.time() - t0:.1f} s; launches on the "
+        f"sharded path: {json.dumps(shard_counts)}, of them by the sharded "
+        f"calls alone {json.dumps(shard['launches'])}; probe_select on the "
+        f"deep DB's shard sub blocks {shard['deep_probe_launches']}; peak "
+        f"device memory {shard_peak} B ({shard_peak / 2**30:.2f} GiB); the "
+        f"exchange between table shards is device-local copies on one card, "
+        f"not NCCL; {card}")
+    for name in SHARD_KERNELS:
+        check(shard["launches"][name] > 0,
+              f"{name} was never launched on the sharded path")
+    check(shard["deep_probe_launches"] > 0,
+          "probe_select never ran on the shards' sub blocks")
     del ds_deep, eng_deep
     torch.cuda.empty_cache()
     log(f"phase 4: gather_exp experiments ({', '.join(GX.EXPERIMENTS)})")
     exp = GX.run(GX.EXPERIMENTS, device, deep=db_deep)
     kept = phase_build_db()
-    peak = torch.cuda.max_memory_allocated()
+    peak = max(peak_before, torch.cuda.max_memory_allocated())
     log(f"phase 4: peak device memory {peak} B ({peak / 2**30:.2f} GiB)")
 
     # -- phase 5: the main path went through every kernel
@@ -2409,9 +2830,13 @@ def main(argv: list[str]) -> int:
         f"finish_best_call {best_q['slim_objects']:.0f} / "
         f"{best_d['slim_objects']:.0f}), {n_over} overflow rows through the "
         f"fallback; build_db "
-        f"kept {kept} kmers; peak {peak} B on {card}")
+        f"kept {kept} kmers; sharded step proteins/s "
+        f"{json.dumps({str(k): {n: round(r) for n, r in v.items()} for k, v in shard['rates'].items()})}"
+        f" ({shard['nccl']} one-rank group equal); peak {peak} B on {card}")
 
-    records = [dict(kernels[k], launches=launches[k]) for k in wrappers]
+    records = [dict(kernels[k], launches=launches[k],
+                    **({"sharded_launches": shard["launches"][k]}
+                       if k in SHARD_KERNELS else {})) for k in wrappers]
     print(json.dumps({"kernels": records}))
     print(card)
     print(json.dumps({"ok": True, "device": {

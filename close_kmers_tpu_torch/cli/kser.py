@@ -9,11 +9,14 @@
   the engine's compact probe;
 * ``--device`` (default ``cuda``) names the device; without a card
   ``cuda`` raises, and ``--device cpu`` is the explicit CPU mode;
-* ``--listen-port-file`` writes the bound port (kserver.cc:154-159).
+* ``--listen-port-file`` writes the bound port (kserver.cc:154-159);
+* ``--shards N`` range-shards the DB over a 1 x N mesh (the first N
+  cards; N entries on one device with ``--device cuda:0`` or ``--device
+  cpu``), and ``--routed-probe`` routes each window to its owning shard
+  (``parallel/sharding.py``).
 
-The JAX-only options of the JAX CLI are refused: ``--jax-profile-dir``,
-the XLA compile cache (``CLOSE_KMERS_JAX_CACHE``), and the sharded
-serving flags ``--shards`` / ``--routed-probe``.
+The JAX-only options of the JAX CLI are refused: ``--jax-profile-dir``
+and the XLA compile cache (``CLOSE_KMERS_JAX_CACHE``).
 """
 
 from __future__ import annotations
@@ -59,10 +62,16 @@ def warmup_context(ctx) -> None:
 
 
 def load_server_context(data_dir: str, args=None, batch_size: int = 2048,
-                        overrides: dict | None = None, *, device):
+                        overrides: dict | None = None, n_shards: int = 0,
+                        routed: bool = False, *, device):
     """Load the signature DB onto ``device``, build the server context
-    and its family universe (with the NR preload) from ``data_dir``."""
+    and its family universe (with the NR preload) from ``data_dir``.
+    ``n_shards`` > 0 range-shards the DB over a 1 x n_shards mesh: the
+    first n_shards cards for a bare "cuda", or n_shards entries on the
+    one device named ("cuda:0", "cpu"); ``routed`` selects the routed
+    probe."""
     from ..core.api import KmerEngine
+    from ..utils.device import resolve_device
     from ..db import family_db, signature_db
     from ..server.http import ServerContext
 
@@ -70,7 +79,17 @@ def load_server_context(data_dir: str, args=None, batch_size: int = 2048,
     db = signature_db.SignatureDB.load_dir(data_dir)
     print(f"loaded signature DB: {len(db):,} kmers in {time.time()-t0:.1f}s",
           file=sys.stderr)
-    engine = KmerEngine(db, device)
+    if n_shards:
+        from ..parallel.sharding import make_mesh
+        device = resolve_device(device)
+        cards = device.type == "cuda" and device.index is None
+        mesh = make_mesh(1, n_shards,
+                         devices=None if cards else [device] * n_shards)
+        print(f"serving with {n_shards} table shards"
+              + (" (routed probe)" if routed else ""), file=sys.stderr)
+        engine = KmerEngine(db, None, mesh=mesh, routed=routed)
+    else:
+        engine = KmerEngine(db, device)
 
     found = discover_data_dir(data_dir)
     if overrides:
@@ -218,19 +237,24 @@ def main(argv=None):
                     help=argparse.SUPPRESS)
     ap.add_argument("--peg-kmer-data", default=None,
                     help=argparse.SUPPRESS)
-    # JAX-only options of the JAX CLI: parsed so that they can be refused
-    ap.add_argument("--jax-profile-dir", default=None, help=argparse.SUPPRESS)
-    ap.add_argument("--shards", type=int, default=0, help=argparse.SUPPRESS)
+    ap.add_argument("--shards", type=int, default=0,
+                    help="range-shard the DB across this many devices "
+                         "(table axis of a 1 x N mesh)")
     ap.add_argument("--routed-probe", action="store_true",
-                    help=argparse.SUPPRESS)
+                    help="with --shards: route windows to their owning "
+                         "shard with one all_to_all per direction instead "
+                         "of the replicated psum-merge probe")
+    # a JAX-only option of the JAX CLI: parsed so that it can be refused
+    ap.add_argument("--jax-profile-dir", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
 
     if args.jax_profile_dir:
         ap.error("--jax-profile-dir records a JAX profiler trace; the torch "
                  "server has no JAX")
-    if args.shards or args.routed_probe:
-        ap.error("--shards/--routed-probe: sharded serving is not ported "
-                 "to the torch server")
+    if args.shards < 0:
+        ap.error("--shards takes a positive number of table shards")
+    if args.routed_probe and not args.shards:
+        ap.error("--routed-probe routes between table shards: give --shards")
     if os.environ.get("CLOSE_KMERS_JAX_CACHE"):
         ap.error("CLOSE_KMERS_JAX_CACHE sets the XLA compile cache, which "
                  "the torch server does not have; unset it")
@@ -259,7 +283,8 @@ def main(argv=None):
                      families_version=args.families_version,
                      kmer_version=args.kmer_version)
     ctx = load_server_context(data_dir, args, args.batch_size,
-                              overrides=overrides, device=device)
+                              overrides=overrides, n_shards=args.shards,
+                              routed=args.routed_probe, device=device)
     ctx.checkpoint_dir = args.checkpoint_dir
     if args.kmer_family_distribution_file:
         with open(args.kmer_family_distribution_file, "w") as f:

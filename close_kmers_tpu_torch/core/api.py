@@ -7,8 +7,8 @@ Ported: ``AnnotationResult``, ``KmerEngine.annotate`` and
 ``annotate_family``, ``best_family_matches``,
 ``best_family_matches_padded`` and ``family_scores_batch`` (whose hit
 arrays are now a required argument: the port keeps no ``_last_hits``, so
-it has no ``hits_compact`` either), and ``best_call``.
-``mesh=`` raises ``NotImplementedError`` until ``parallel/`` is ported.
+it has no ``hits_compact`` either), ``best_call``, and the sharded engine
+(``mesh=``, ``routed=``).
 
 Three deliberate differences from the reference: the engine caches its
 family scorer per mapping in a weak-keyed table of its own, never as
@@ -19,6 +19,11 @@ same way (``_device_matrix``), never as ``eng._device_matrix``; and
 keeps at most ``FAMILY_MATCH_GROUP`` chunks in flight, where the
 reference dispatches every chunk of a request up front (ADVICE.md,
 medium: unbounded dispatch-ahead).
+
+With ``mesh=`` the engine probes a range-sharded DB
+(``parallel.sharding.ShardedEngine``, replicated or ``routed``); the
+family program and the /matrix device program then take their host
+paths, as in the reference, since both read a single-device table.
 """
 
 from __future__ import annotations
@@ -77,15 +82,24 @@ class KmerEngine:
 
     def __init__(self, db: SignatureDB, device, mesh=None,
                  device_family: bool = True,
-                 device_family_min: int | None = None):
-        """``device_family``: allow the fused device calls + family
+                 device_family_min: int | None = None,
+                 routed: bool = False):
+        """``device``: the one device of the engine; None with ``mesh``
+        (a ``parallel.sharding.Mesh``), whose entries name the devices of
+        a range-sharded DB.  ``routed``: with a mesh, probe through the
+        all_to_all exchange instead of the replicated psum merge.
+        ``device_family``: allow the fused device calls + family
         rollup path for family-mode lookups; ``device_family_min``:
         minimum mapping size (distinct kmers) to justify the family table
         upload (default env CLOSE_KMERS_DEVICE_FAMILY_MIN or 50000)."""
-        if mesh is not None:
-            raise NotImplementedError("sharded (mesh) serving is not ported")
         self.db = db
-        self.fa = FastAnnotator(db, device)
+        if mesh is not None:
+            if device is not None:
+                raise ValueError("give a device or a mesh, not both")
+            from ..parallel.sharding import ShardedEngine
+            self.fa = ShardedEngine(db, mesh, routed=routed)
+        else:
+            self.fa = FastAnnotator(db, device)
         self.function_of = db.function_of
         self.device_family = device_family
         self.device_family_min = device_family_min \
@@ -175,10 +189,10 @@ class KmerEngine:
     def _device_family_scorer(self, mapping):
         """DeviceFamilyScorer for ``mapping``, cached per engine and
         rebuilt when the mapping's CSR is (every add_fam_mapping clears
-        it).  None when the device path does not apply: disabled,
-        mapping too small to justify the family table upload, or
-        per-kmer family fan-out too large to densify."""
-        if not self.device_family:
+        it).  None when the device path does not apply: a sharded
+        engine, disabled, mapping too small to justify the family table
+        upload, or per-kmer family fan-out too large to densify."""
+        if not self.device_family or getattr(self.fa, "ddb", None) is None:
             return None
         csr = mapping.fam_csr()
         if len(csr[0]) < self.device_family_min:

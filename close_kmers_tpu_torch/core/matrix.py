@@ -98,9 +98,9 @@ def matrix_distance(eng, mapping, items):
     (mapping kmers absent from the signature DB can never be probe hits,
     matrix_request.cc:130-140) and staged by :meth:`DeviceMatrix.
     mapping_csr`.  Engine parameters change no probe hit, so they do not
-    enter here."""
-    ddb = eng.fa.ddb
-    if ddb.n > (1 << 27):
+    enter here.  A sharded engine has no single-device table: None."""
+    ddb = getattr(eng.fa, "ddb", None)
+    if ddb is None or ddb.n > (1 << 27):
         return None
     P = len(items)
     if not (0 < P <= (1 << PAIR_SHIFT)):

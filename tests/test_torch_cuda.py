@@ -969,3 +969,84 @@ def test_tpu_engine_on_card_matches_cpu(cuda):
                                 genus_filter=False)
     assert got == want and sum(1 for _, m in want if m.gfam_id) > 10
     assert probe_select.launches > before
+
+
+def _deep_db(rng, n=8_000):
+    """~60 hi buckets over 8k keys: sub-bucket blocks in every shard."""
+    his = rng.integers(1_000_000, 1_000_060, size=n, dtype=np.int64)
+    keys = np.unique(his * P.LO_CARD
+                     + rng.integers(0, P.LO_CARD, size=n, dtype=np.int64))
+    return SignatureDB(keys, rng.integers(0, 50, size=len(keys)).astype(
+        np.int32), rng.integers(-1, 9, size=len(keys)).astype(np.int32),
+        rng.integers(0, 300, size=len(keys)).astype(np.int32),
+        rng.uniform(0.1, 4.0, size=len(keys)).astype(np.float32),
+        functions=[f"fn{i}" for i in range(50)])
+
+
+@pytest.mark.parametrize("deep", [False, True])
+@pytest.mark.parametrize("shape", [(1, 4), (2, 2)])
+def test_sharded_step_on_card_matches_single_card(cuda, shape, deep):
+    """The sharded serving step on a mesh of four entries on one card
+    (routed and replicated, with family rows) equals the single-card
+    best-call pack and rollup and the same step on four CPU entries;
+    probe_routed equals probe_sharded, ShardedEngine.probe_compact equals
+    FastAnnotator's, and the five kernels of the path launch."""
+    from close_kmers_tpu_torch.parallel import sharding as SH
+    rng = np.random.default_rng(11)
+    db = _deep_db(rng) if deep else _db(rng)[0]
+    offsets = np.full((64, 160), 20, np.uint8)
+    lengths = rng.integers(30, 150, size=64).astype(np.int32)
+    for b in range(64):
+        ks = rng.choice(db.keys, size=20)
+        spelled = ((ks[:, None] // 20 ** np.arange(7, -1, -1)) % 20)
+        offsets[b, :lengths[b]] = np.resize(spelled.reshape(-1), lengths[b])
+    mapping = family_db.KmerFamilyMapping()
+    for k in db.keys:
+        for f in set(rng.integers(0, 30, size=rng.integers(1, 4)).tolist()):
+            mapping.add_fam_mapping(int(f), int(k))
+    fam = DeviceFamilyScorer(db, mapping, "cpu").fdb.fam.numpy()
+    params = EngineParams(min_hits=2, max_gap=40)
+    want_best = DeviceScorer(db, "cpu").best_batch_packed(offsets, lengths,
+                                                          params)
+    want_roll = DeviceFamilyScorer(db, mapping, "cpu").rollup(
+        offsets, lengths, fams_per_seq_cap=64)
+    names = ("probe_select", "scan_score", "row_gather", "family_group",
+             "best_call")
+    kernels = (probe_select, scan_score, row_gather, family_group, best_call)
+    before = [k.launches for k in kernels]
+    sdb = {}
+    for dev in ("cpu", cuda):
+        mesh = SH.make_mesh(*shape, devices=[dev] * 4)
+        sdb[dev] = SH.ShardedDB.from_db(db, mesh)
+    assert (sdb[cuda].sub_blocks is not None) == deep
+    for routed in (True, False):
+        outs = {dev: SH.serve_step_sharded(
+            s, offsets, lengths, params=params,
+            fam_shards=SH.shard_fam_table(fam, s), cap_seq=64,
+            routed=routed) for dev, s in sdb.items()}
+        got = outs[cuda]
+        assert got[0].device.type == cuda.type
+        assert torch.equal(got[0].cpu(), want_best)
+        for a, b in zip(outs["cpu"], got):
+            assert torch.equal(bits(a), bits(b))
+        roll = DeviceFamilyScorer.finish_rollup_rows(got[3].cpu().numpy(),
+                                                     64)
+        for a, b in zip(want_roll, roll):
+            assert np.array_equal(np.asarray(a).view(np.int32),
+                                  np.asarray(b).view(np.int32))
+        assert int(got[2].sum()) == 0
+    rep = SH.probe_sharded(sdb[cuda], offsets, lengths)
+    rt = SH.probe_routed(sdb[cuda], offsets, lengths)
+    for a, b in zip(rep[:5], rt[:5]):
+        assert torch.equal(bits(a), bits(b))
+    hw = FastAnnotator(db, "cpu").probe_compact(offsets, lengths)
+    for routed in (True, False):
+        hg = SH.ShardedEngine(db, sdb[cuda].mesh, routed=routed) \
+            .probe_compact(offsets, lengths)
+        for k in hw:
+            assert np.array_equal(np.asarray(hg[k]).view(np.int32),
+                                  np.asarray(hw[k]).view(np.int32)), k
+    assert len(hw["pos"]) > 500
+    after = [k.launches for k in kernels]
+    assert all(a > b for a, b in zip(after, before)), \
+        dict(zip(names, zip(before, after)))

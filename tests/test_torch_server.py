@@ -327,9 +327,12 @@ def test_kser_cuda_without_card_raises():
         kser.main(["0", DATA, "--no-listen"])     # --device cuda is the default
 
 
-@pytest.mark.parametrize("flags", [["--jax-profile-dir", "x"], ["--shards", "2"],
+@pytest.mark.parametrize("flags", [["--jax-profile-dir", "x"], ["--shards", "-1"],
                                    ["--routed-probe"]])
 def test_kser_refuses_jax_only_flags(flags):
+    """The JAX profiler flag is refused, and so are a negative shard count
+    and a routed probe without table shards (the sharded flags themselves
+    serve: test_torch_sharded_server.py)."""
     with pytest.raises(SystemExit) as e:
         kser.main(["0", DATA, "--device", "cpu", "--no-listen", *flags])
     assert e.value.code == 2
