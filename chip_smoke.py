@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Smoke run of the torch port's /query (with device best-call), family,
-genome, /matrix, probe-gather, TpuEngine, sharded serving and
-build_signature_kmers paths on one NVIDIA card.
+genome, /matrix, probe-gather, TpuEngine, sharded serving,
+build_signature_kmers and PATRIC-scale paths on one NVIDIA card.
 
-    python3 chip_smoke.py [--compare LABEL=DIR ...]
+    python3 chip_smoke.py [--compare LABEL=DIR ...] [--scale-keys N]
+                          [--scale-only DBS] [--sweep-cap GB]
 
 Builds the CUDA kernels from ``close_kmers_tpu_torch/csrc`` (one nvcc per
 source, in parallel) and drives the port's main paths on the card, phase
@@ -13,13 +14,19 @@ card, and exits 1 without one.
 1. Device and build: the card's name and power limit (nvidia-smi), then
    ``nvcc`` builds the kernels for sm_90a (build seconds printed).
 2. Kernels against their plain torch versions, exact equality, times
-   from CUDA events: probe_select and scan_score on one 4096 x 300-aa
-   batch against the real-size DB of phase 4; row_gather, famwide_select
+   from CUDA events: probe_select (on the DB's payload-wide rows, built
+   by name: the auto-ladder takes the binary search) and scan_score on
+   one 4096 x 300-aa batch against the real-size DB of phase 4;
+   probe_search, the auto-ladder's probe, on the same batch, on the deep
+   cell's batch, on the genome's tile windows and on one /matrix chunk,
+   by launch warm and L2 flushed, with its bound (each window's bytes,
+   its bucket pair, the distinct 32-B lo sectors its search reads and a
+   hit's payload row); row_gather, famwide_select
    and family_group on the same batch against the family universe of
    phase 4 (D = 3), family_group also on the first chunk of phase 4's
    /fq_lookup ORF batch and on both sides of its route limit (W*D =
    8192 fused, 8193 sorted); probe_select again on the deep DB's sub
-   blocks; and
+   blocks (built by name); and
    best_call on the query and deep batches' scan outputs (as the scan
    lays them out), also at B in {1, 33, 4097} x W+1 in BC_WIDTHS (1 to
    1,017), on column slices of wider rows and on rows of 0-63 calls
@@ -46,12 +53,12 @@ card, and exits 1 without one.
    also at B in {1, 33, 4096, 4097} x W in {1, 63, 64, 65, 304}, fresh,
    chained and state-only, and at the genome program's shape (W = 1,016,
    B in {1, 9984}), chained and state-only.  The genome program's
-   kernels at its own inputs (phase 4's 5-Mbp genome): probe_select on
-   its 10,143,744 tile windows (timed as on the query cell), and
+   kernels at its own inputs (phase 4's 5-Mbp genome): probe_search on
+   its 10,143,744 tile windows, and
    scan_score on its 9,984 x 1,016 scan inputs chained (init as the
    fixpoint builds it, pos0, final_flush) with emit and state-only, each
    timed as the path calls it and by launch alone, L2 flushed, with its
-   bound; probe_select also on one /matrix chunk's 2,048 x 304 windows.
+   bound.
    Each kernel's record carries its bound (the
    bytes it must move over 3.35 TB/s; for vgather the longer of its
    shared-memory bytes over the SMs' bank rate and its 64-bit adds over
@@ -61,8 +68,13 @@ card, and exits 1 without one.
    Tiers: the 20.5M-kmer DB of phase 4 built in each probe tier by
    ``DeviceDB.from_db`` flags (the six variants of
    tests/test_engine.py::test_probe_layout_parity), one table at a time;
-   each tier's probe of the batch must equal the payload-wide probe
-   (ms per batch and peak memory printed).
+   each tier's probe of the batch must equal the auto-ladder's probe
+   (ms per batch and peak memory printed).  Tier sweeps: gather_exp's
+   deep DB (~306 keys a bucket) and its keys over 16,000 and 4,000 hi
+   buckets, each tier that fits the card and the host built by name,
+   one at a time, timed on 4,096 spelled proteins' 1,245,184 windows,
+   equal to the binary search; a tier that does not fit is printed
+   with its bytes.
 3. The golden server on the card: the port's kser context on
    tests/golden/data with device="cuda", and the version / query /
    query_details / query_best / lookup / lookup_best / wadd / xmatrix
@@ -100,8 +112,8 @@ card, and exits 1 without one.
      best_family_matches_padded(as_arrays=True), best-frame reduction);
      a 1,000-read sample equal to the host path's output.
    * deep: scripts/gather_exp.py deepcmp's DB (20M random keys over
-     64,000 hi buckets, ~312 per bucket, PATRIC density), which the
-     auto-ladder puts on the sub_blocks tier; 65,536 proteins spelled
+     64,000 hi buckets, ~312 per bucket, PATRIC density), on the
+     auto-ladder's tier (the binary search); 65,536 proteins spelled
      from its kmers (37 kmers of one function each, so calls form)
      through the /query checks above.
    * genome: a 5-Mbp genome by scripts/dna_bench.py's synth_genome (seed
@@ -121,8 +133,8 @@ card, and exits 1 without one.
      rule.
    * the probe-gather experiments: ``python -m
      close_kmers_tpu_torch.scripts.gather_exp`` with every experiment
-     it runs, deepcmp on the deep DB (deep_sub equal to deep_bin on
-     2.49M windows).
+     it runs, deepcmp on the deep DB (deep_sub, the sub_blocks tier,
+     equal to deep_bin on 2.49M windows).
    * build_db: cli/build_db.main on 20,000 annotated proteins in 20
      genome files (each function's protein point-mutated in every
      genome), --min-reps-required 5, recall and validation with
@@ -147,10 +159,39 @@ card, and exits 1 without one.
      just before it and read just after: the five kernels of the path
      (probe_select, scan_score, row_gather, family_group, best_call) must
      each have launched in the sharded calls themselves.
-5. All ten kernels' launch counters, reset just before phases 3-4, must
-   be above 0; probe_select must have launched on the deep DB's
-   sub_blocks path, on the genome path (with scan_score) and on the
-   matrix path.
+   * scale (its own path: the counts set to 0 just before it and read
+     just after): two DBs of --scale-keys (default
+     210,000,000, make_scale_db's --target-kmers and BENCH_SCALE.json's
+     208M point) made on the card by scripts/make_scale_db.scale_db
+     from a seed, uniform residues and the --aa-bias skew, 2,000
+     functions; each prints its keys, max bucket, max sub-bucket, the
+     tier each gate set picks and every tier's table bytes; probe_search
+     on 4,096 spelled proteins' 1,245,184 windows against its plain
+     version and numpy searchsorted over all keys, beside
+     torch.searchsorted + equality; every tier that fits timed on those
+     windows (six planes equal to the binary search's; a tier left out
+     printed with its bytes); 65,536 spelled proteins through
+     DeviceScorer.best_batch_packed on the port's pick (from_db with no
+     flags) and on the JAX gates' pick (its flags), interleaved, as
+     proteins/s, the packs equal and a 4,096-protein sample's best calls
+     equal to native best-call over the searchsorted reference.
+     ``--scale-only uniform,skewed`` runs phase 1 and this phase alone
+     (``deep`` adds the deep DBs' tier sweeps before it).
+   ``--tier-e2e N`` runs, alone, the query DB's /query (device pack and
+   slim pack + native), genome and /matrix rates on payload_wide and the
+   binary search in turns, N rounds (``tier_e2e``); ``--port-root DIR``
+   imports the port from another tree for it, e.g. the parent commit
+   unpacked by git archive, one process a tree.
+5. The main path (phases 3-4 up to build_db) is counted alone: its
+   counters set to 0 just before phase 3 and read after build_db, before
+   the sharded and scale paths, which are counted alone in turn.  Every
+   kernel must have launched on the main path (probe_select there only
+   in gather_exp's deepcmp: /query, the genome and /matrix probe
+   through the binary search); the deep DB's, the genome's (with
+   scan_score) and the matrix's probe kernel (probe_search) on their
+   own paths.  The kernels line gives
+   each kernel's main-path count as ``launches``, beside
+   ``sharded_launches`` and ``scale_launches``.
 
 The last lines are the kernels' JSON record, the nvidia-smi line and
 ``{"ok": true, "device": {...}}``.
@@ -159,6 +200,7 @@ The last lines are the kernels' JSON record, the nvidia-smi line and
 from __future__ import annotations
 
 import asyncio
+import dataclasses
 import json
 import os
 import socket
@@ -925,11 +967,11 @@ def phase_sub_select(T, ddb, off_d, len_d, flush) -> dict:
 
 def phase_tiers(T, db, ddb, off_d, len_d):
     """Tier phase: ``db`` built in each probe tier by from_db flags, one
-    table at a time; each tier's probe of the batch must equal the
-    payload-wide probe of ``ddb``.  Returns {label: (ms, peak bytes above
-    the resident tensors)}."""
+    table at a time; each tier's probe of the batch must equal the probe
+    of ``ddb``, the auto-ladder's pick.  Returns {label: (ms, peak bytes
+    above the resident tensors)}."""
     import torch
-    check(ddb.tier == "payload_wide", f"the corpus DB took {ddb.tier}")
+    check(ddb.tier == T.card_tier(db), f"the corpus DB took {ddb.tier}")
     hi, lo, valid = T.encode_windows(off_d, len_d)
     want = T.probe_windows(ddb, hi, lo, valid)
     out = {}
@@ -952,7 +994,7 @@ def phase_tiers(T, db, ddb, off_d, len_d):
         log(f"tiers: {label} ({d.tier}): {table} B of tables built and "
             f"uploaded in {built:.1f} s; probe of {hi.numel()} windows "
             f"{ms:.4f} ms, peak {peak} B above the resident tensors; equal "
-            f"to the payload-wide probe")
+            f"to the {ddb.tier} probe")
         out[label] = (ms, peak)
         del d, got
         torch.cuda.empty_cache()
@@ -1435,16 +1477,17 @@ def scan_record(S, sargs, init, pos0, final_flush, flush) -> dict:
 
 
 def phase_genome_kernels(T, TG, S, ddb, digits, n_true, params, flush):
-    """Phase 2, genome: probe_select on the 5-Mbp genome's tile windows
-    and scan_score on its scan inputs (9,984 rows x 1,016 windows),
-    chained and state-only, each against its plain version.  Returns the
-    two records' ``genome`` fields."""
+    """Phase 2, genome: probe_search on the 5-Mbp genome's tile windows
+    (the genome program's probe on ``ddb``, the binary-search tier) and
+    scan_score on its scan inputs (9,984 rows x 1,016 windows), chained
+    and state-only, each against its plain version.  Returns the two
+    records' ``genome`` fields."""
     import torch
+    check(ddb.tier == "binary_search", f"the genome probes {ddb.tier}")
     tiles, tlens, pos0, t_of, n_t = TG._genome_tiles(digits, n_true)
     hi, lo, valid = T.encode_windows(tiles, tlens)
     flat = (hi.reshape(-1), lo.reshape(-1), valid.reshape(-1))
-    got, probe = time_probe(flat, ddb.payload_wide, ddb.wide_w, ddb.n, flush,
-                            "the genome's windows")
+    got, probe = time_search(ddb, flat, flush, "the genome's windows")
     found, fi, _oi, av, wt, _idx = (x.reshape(hi.shape) for x in got)
     sargs = (found, fi, av, wt, params.min_hits, params.min_weighted_hits,
              params.max_gap, params.order_constraint)
@@ -1491,21 +1534,31 @@ def device_share(fn) -> dict:
                 top=[(name[:60], ms) for name, ms in top])
 
 
+def probe_kernel(ddb):
+    """The wrapper of the kernel that ``ddb``'s tier probes through."""
+    from close_kmers_tpu_torch.ops.probe_search import probe_search
+    from close_kmers_tpu_torch.ops.probe_select import probe_select
+    kernel = {"binary_search": probe_search, "payload_wide": probe_select,
+              "sub_blocks": probe_select}.get(ddb.tier)
+    check(kernel is not None, f"the {ddb.tier} tier has no kernel")
+    return kernel
+
+
 def phase_genome(host, T, TG, eng, db, genome: str, params) -> dict:
     """Phase 4, genome: the 5-Mbp genome through GenomeAnnotator.calls_of
     (best of passes, Mbp/s), its fixpoint rounds and kernel launches per
     genome, and all six frames' call lists against the native CPU
     reference over translate.six_frame_kguts_offsets."""
     import torch
-    from close_kmers_tpu_torch.ops.probe_select import probe_select
     from close_kmers_tpu_torch.ops.scan_score import scan_score
     tr = host.translate
     digits = tr._DNA_CHAR[tr._to_bytes(genome)]   # parsed once, as a server
     ga = TG.GenomeAnnotator(eng)
     ga.calls_of(digits, params)                                 # warm-up
-    before = (probe_select.launches, scan_score.launches)
+    probe = probe_kernel(eng.fa.ddb)
+    before = (probe.launches, scan_score.launches)
     per_frame, frames = ga.calls_of(digits, params)
-    per_genome = (probe_select.launches - before[0],
+    per_genome = (probe.launches - before[0],
                   scan_score.launches - before[1])
     _, rounds, n_t = ga.dispatch(digits, params)
     passes = []
@@ -1518,7 +1571,8 @@ def phase_genome(host, T, TG, eng, db, genome: str, params) -> dict:
     n_calls = int(per_frame.sum())
     log(f"phase 4: genome: {len(genome):,} bp, T={n_t} tiles a frame, "
         f"{rounds} fixpoint rounds, {n_calls} calls; launches per genome: "
-        f"probe_select {per_genome[0]}, scan_score {per_genome[1]}; passes "
+        f"{probe.__name__} {per_genome[0]}, scan_score {per_genome[1]}; "
+        f"passes "
         f"{passes} s; best {best:.4f} s = "
         f"{len(genome) / best / 1e6:.2f} Mbp/s")
     check(n_calls > 1000, f"only {n_calls} calls in the genome")
@@ -1551,7 +1605,8 @@ def phase_genome(host, T, TG, eng, db, genome: str, params) -> dict:
         f"CPU reference (searchsorted hits + native.score_batch, "
         f"{time.time() - t0:.1f} s)")
     return dict(mbp_s=len(genome) / best / 1e6, rounds=rounds,
-                launches=per_genome, calls=n_calls, profile=prof)
+                probe=probe.__name__, launches=per_genome, calls=n_calls,
+                profile=prof)
 
 
 def matrix_csr(db, rng):
@@ -1604,7 +1659,6 @@ def phase_matrix(host, TM, eng, db, offsets, lengths, rng) -> dict:
     DeviceMatrix.count_pairs (best of passes, proteins/s), held against
     native.matrix_hash and, on a prefix, the numpy replay."""
     import torch
-    from close_kmers_tpu_torch.ops.probe_select import probe_select
     t0 = time.time()
     offs, vals, rank = matrix_csr(db, rng)
     off_m, len_m = offsets[:MATRIX_P], lengths[:MATRIX_P]
@@ -1614,9 +1668,10 @@ def phase_matrix(host, TM, eng, db, offsets, lengths, rng) -> dict:
     log(f"set-up: matrix CSR of {len(vals):,} pegs built and staged in "
         f"{time.time() - t0:.1f} s")
     dm.count_pairs(off_m, len_m, po, pv, rank)                  # warm-up
-    before = probe_select.launches
+    probe = probe_kernel(eng.fa.ddb)
+    before = probe.launches
     pairs = dm.count_pairs(off_m, len_m, po, pv, rank)
-    launches = probe_select.launches - before
+    launches = probe.launches - before
     passes = []
     for _ in range(5):
         torch.cuda.synchronize()
@@ -1626,9 +1681,10 @@ def phase_matrix(host, TM, eng, db, offsets, lengths, rng) -> dict:
     best = min(passes)
     shared = sum(pairs.values())
     log(f"phase 4: matrix: {MATRIX_P} proteins, {len(pairs)} pairs, {shared} "
-        f"shared kmer-peg hits; probe_select launches {launches}; passes "
+        f"shared kmer-peg hits; {probe.__name__} launches {launches}; "
+        f"passes "
         f"{passes} s; best {best:.4f} s = {MATRIX_P / best:.0f} proteins/s")
-    check(launches > 0, "the matrix path launched no probe_select")
+    check(launches > 0, f"the matrix path launched no {probe.__name__}")
     prof = device_share(lambda: dm.count_pairs(off_m, len_m, po, pv, rank))
     log(f"phase 4: matrix: one request profiled: {prof}")
     t0 = time.time()
@@ -1646,7 +1702,8 @@ def phase_matrix(host, TM, eng, db, offsets, lengths, rng) -> dict:
         f"{got_c[1]} shared) and the numpy replay of the first "
         f"{MATRIX_PREFIX} proteins ({len(want)} pairs), "
         f"{time.time() - t0:.1f} s")
-    return dict(proteins_s=MATRIX_P / best, launches=launches,
+    return dict(proteins_s=MATRIX_P / best, probe=probe.__name__,
+                launches=launches,
                 pairs=len(pairs), profile=prof)
 
 
@@ -2583,16 +2640,652 @@ def phase_sharded_golden() -> None:
             srv.close()
 
 
+# -- the scale phase: PATRIC-scale DBs, the tier gates, probe_search
+
+# scripts/make_scale_db.py's default --target-kmers (BENCH_SCALE.json's
+# 208M point); --scale-keys changes it
+SCALE_KEYS = 210_000_000
+SCALE_DBS = (("uniform", False, 21), ("skewed", True, 22))
+# the subset of a scale DB's keys the spelled queries are drawn from (an
+# argsort of every key's function would take ~20 s of host time)
+SCALE_SPELL_POOL = 4_000_000
+# what a plain tier's probe holds above its table, a multiple of one
+# gathered row a window (the row, the match plane, the int32 one-hot)
+PLAIN_PEAK_ROWS = {"fused_wide": 3.5, "lo_wide": 2.5}
+SCALE_KERNELS = ("probe_search", "scan_score", "best_call")
+# the largest tables a tier sweep builds (besides the picks it is given):
+# --sweep-cap in GB sets it
+SWEEP_MAX_BYTES = 16 << 30
+# hi-bucket spans of the deeper DBs of the tier sweep: gather_exp's deep
+# DB's keys over fewer buckets (~1,200 and ~4,900 keys a bucket)
+DEEP_SPANS = (16_000, 4_000)
+
+
+def host_available_bytes() -> int:
+    """The host's MemAvailable (/proc/meminfo), in bytes."""
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) * 1024
+    raise RuntimeError("no MemAvailable in /proc/meminfo")
+
+
+def card_free_bytes() -> int:
+    import torch
+    return torch.cuda.mem_get_info()[0]
+
+
+def table_bytes(T, d) -> int:
+    return sum(getattr(d, f).numel() * 4 for f in T.DeviceDB.ARRAYS
+               if getattr(d, f) is not None)
+
+
+def tier_row_w(T, st, tier: str) -> int:
+    W = max(1, st.max_bucket)
+    return {"fused_wide": T._lane_pad(1 + 2 * W),
+            "lo_wide": T._lane_pad(1 + W)}.get(tier, 0)
+
+
+def tier_fits(T, st, tier: str, n_windows: int):
+    """(fits, why): whether ``tier``'s tables and its probe of
+    ``n_windows`` windows fit the card's free memory and its numpy build
+    the host's, with 2 GiB to spare on each."""
+    need = T.tier_bytes(st, tier)
+    peak = int(PLAIN_PEAK_ROWS.get(tier, 0) * n_windows
+               * tier_row_w(T, st, tier) * 4)
+    card, host = card_free_bytes(), host_available_bytes()
+    if need + peak + (2 << 30) > card:
+        return False, (f"{need} B of tables + ~{peak} B of probe above "
+                       f"them > the card's {card} B free")
+    # the numpy tables, the int64 row indices of the build, 2 GiB
+    if need + st.n * 24 + (2 << 30) > host:
+        return False, (f"{need} B of numpy tables + build scratch > the "
+                       f"host's {host} B available")
+    return True, ""
+
+
+def time_tier(T, d, flat, want, label: str) -> dict:
+    """One tier's probe of ``flat`` windows against ``want`` (six planes,
+    equal bit for bit): ms warm (CUDA events, mean of 10), peak bytes
+    above the resident tensors."""
+    import torch
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    got = T.probe_windows(d, *flat)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    max_abs_err(want, got)
+    del got
+    ms = cuda_ms(lambda: T.probe_windows(d, *flat), 10)
+    return dict(ms=ms, bytes=table_bytes(T, d), peak=peak)
+
+
+def tier_sweep(T, db, st, flat, want, label: str, keep: dict) -> dict:
+    """``db`` built in each probe tier that fits (:func:`tier_fits`) and
+    whose tables stay within SWEEP_MAX_BYTES (the builds of larger ones
+    take tens of seconds of the run's time), one table at a time and
+    freed after, except the tables in ``keep`` ({tier: DeviceDB}, timed
+    as they are); each tier's probe of ``flat`` must equal ``want``.
+    Returns {tier: record}; a tier left out has its bytes and why, and is
+    printed by name."""
+    import torch
+    out = {}
+    dev = flat[0].device
+    for tier in T.TIERS:
+        nb = T.tier_bytes(st, tier)
+        if tier in keep:
+            d = keep[tier]
+        else:
+            fits, why = tier_fits(T, st, tier, flat[0].numel())
+            if fits and nb > SWEEP_MAX_BYTES:
+                fits, why = False, (f"{nb} B of tables > the sweep's cap "
+                                    f"of {SWEEP_MAX_BYTES} B (--sweep-cap)")
+            if not fits:
+                out[tier] = dict(left_out=why, bytes=nb)
+                log(f"tiers {label}: {tier} left out: {why}")
+                continue
+            t0 = time.time()
+            d = T.DeviceDB.from_numpy(T.tier_tables(db, tier), dev,
+                                      copy=False)
+            torch.cuda.synchronize()
+            log(f"tiers {label}: {tier} built and uploaded in "
+                f"{time.time() - t0:.1f} s")
+        check(d.tier == tier, f"{tier} built the {d.tier} tier")
+        rec = time_tier(T, d, flat, want, f"{label} {tier}")
+        check(rec["bytes"] == nb, f"{label} {tier}: {rec['bytes']} B of "
+              f"tables, tier_bytes says {nb}")
+        out[tier] = rec
+        log(f"tiers {label}: {tier}: {rec['ms']:.4f} ms per "
+            f"{flat[0].numel()} windows, {rec['bytes']} B of tables, peak "
+            f"{rec['peak']} B above them; six planes equal")
+        del d
+        torch.cuda.empty_cache()
+    return out
+
+
+def search_sectors(ddb, hi, lo, valid) -> int:
+    """The distinct 32-B sectors of ``ddb.lo`` each window's lower bound
+    reads (the kernel's reads: a step while left < right, then the final
+    compare where left < end), summed over the windows."""
+    import torch
+    n = ddb.n
+    v = valid.reshape(-1)
+    hi_c = torch.where(v, hi.reshape(-1), 0).long()
+    lo_c = torch.where(v, lo.reshape(-1), -2)
+    pair = ddb.bucket_pair[hi_c]
+    left, end = pair[:, 0], pair[:, 1]
+    right = end.clone()
+    sec = torch.full((len(v), ddb.n_steps + 1), -1, dtype=torch.int64,
+                     device=hi.device)
+    for s in range(ddb.n_steps):
+        cont = v & (left < right)
+        mid = (left + right) >> 1
+        m = mid.clamp(max=n).long()
+        sec[:, s] = torch.where(cont, m >> 3, -1)
+        go = cont & (ddb.lo[m] < lo_c)
+        left, right = (torch.where(go, mid + 1, left),
+                       torch.where(cont & ~go, mid, right))
+    last = v & (left < end)
+    sec[:, -1] = torch.where(last, left.clamp(max=n).long() >> 3, -1)
+    sec = torch.sort(sec, dim=1).values
+    new = (sec >= 0) & torch.cat(
+        [torch.ones_like(sec[:, :1], dtype=torch.bool),
+         sec[:, 1:] != sec[:, :-1]], dim=1)
+    return int(new.sum())
+
+
+def time_search(ddb, flat, flush, label: str):
+    """probe_search on ``ddb``'s binary-search tables against its plain
+    version, bit for bit, on the ``flat`` windows: by launch, warm and L2
+    flushed, the plain version, and the bound.  Returns (the kernel's
+    planes, the record's fields)."""
+    import torch
+    from close_kmers_tpu_torch.ops import probe_search as PSr
+    hi, lo, valid = flat
+    args = (hi, lo, valid, ddb.bucket_pair, ddb.lo, ddb.payload, ddb.n,
+            ddb.n_steps)
+    got = PSr.probe_search(*args)
+    torch.cuda.synchronize()
+    err = max_abs_err(PSr.probe_search_plain(*args), got)
+    n_hit = int(got[0].sum())
+    check(n_hit > 0, f"probe_search on {label} found no hits")
+    out = PSr.search_outputs(hi.shape, hi.device)
+    rec = dict(
+        max_abs_err=err,
+        ms=cuda_ms_cold(lambda: PSr._launch(*args, out), 20, flush),
+        warm_ms=cuda_ms(lambda: PSr._launch(*args, out), 20),
+        plain_ms=cuda_ms(lambda: PSr.probe_search_plain(*args), 3),
+        windows=hi.numel(), hits=n_hit, n_steps=ddb.n_steps)
+    # each window's 9 B in and 21 B out, the bucket pair of each valid
+    # window, the 32-B lo sectors its search reads, a hit's payload row
+    n_valid = int(valid.sum())
+    rec["sectors"] = search_sectors(ddb, hi, lo, valid)
+    rec.update(bound(hi.numel() * (9 + 21) + n_valid * 8
+                     + rec["sectors"] * 32 + n_hit * 16))
+    log(f"probe_search on {label}: {hi.numel()} windows ({n_valid} valid, "
+        f"{n_hit} hits), n_steps {ddb.n_steps}: launch alone "
+        f"{rec['ms']:.4f} ms L2 flushed, {rec['warm_ms']:.4f} ms warm; "
+        f"plain {rec['plain_ms']:.4f} ms; bound {rec['bound_ms']:.4f} ms "
+        f"({rec['sectors']} distinct 32-B lo sectors); max_abs_err {err}")
+    return got, rec
+
+
+def probe_search_record(T, db, ddb, flat, flush, label: str) -> dict:
+    """:func:`time_search` on ``ddb`` (the binary-search tier of ``db``),
+    the kernel's planes also against numpy searchsorted over all of
+    ``db.keys``, beside torch.searchsorted of the windows' int64 codes in
+    the keys plus the equality test (the library call)."""
+    import torch
+    got, rec = time_search(ddb, flat, flush, label)
+    hi, lo, valid = flat
+    h, lw, v = (x.cpu().numpy() for x in flat)
+    codes = h.astype(np.int64) * 8000 + lw
+    i = np.searchsorted(db.keys, codes)
+    hit = v & (i < len(db)) & (db.keys[np.minimum(i, len(db) - 1)] == codes)
+    g = [x.cpu().numpy() for x in got]
+    check(np.array_equal(g[0], hit), f"{label}: found differs from numpy "
+          f"searchsorted")
+    check(np.array_equal(g[5], np.where(hit, i, len(db))),
+          f"{label}: idx differs from numpy searchsorted")
+    rows = i[hit]
+    for plane, col in ((g[1], db.fi), (g[2], db.oi), (g[3], db.avg_off)):
+        check(np.array_equal(plane[hit], col[rows]) and
+              (plane[~hit] == plane[~hit][:1]).all(),
+              f"{label}: payload differs from the DB's columns")
+    check(np.array_equal(g[4][hit].view(np.int32),
+                         db.wt[rows].view(np.int32)), f"{label}: wt differs")
+    keys_d = torch.from_numpy(db.keys).to(hi.device)
+    codes_d = torch.where(valid, hi.long() * 8000 + lo, -1)
+
+    def library():
+        j = torch.searchsorted(keys_d, codes_d)
+        return keys_d[j.clamp(max=len(db) - 1)] == codes_d
+
+    check(torch.equal(library().cpu(), torch.from_numpy(hit)),
+          f"{label}: torch.searchsorted disagrees")
+    rec.update(library_call="torch.searchsorted(keys, codes) + equality",
+               library_ms=cuda_ms_cold(library, 20, flush))
+    log(f"probe_search on {label}: equal to numpy searchsorted over "
+        f"{len(db):,} keys; torch.searchsorted + equality "
+        f"{rec['library_ms']:.4f} ms L2 flushed")
+    return rec
+
+
+def scale_spelled(db, n: int, seed: int):
+    """``n`` spelled proteins (:func:`spelled_queries`) drawn from a random
+    SCALE_SPELL_POOL of ``db``'s keys."""
+    rng = np.random.default_rng(seed)
+    pool = np.sort(rng.integers(0, len(db), size=min(SCALE_SPELL_POOL,
+                                                     len(db))))
+    sub = types.SimpleNamespace(fi=db.fi[pool], keys=db.keys[pool])
+    return spelled_queries(sub, n, rng)
+
+
+def scale_e2e(host, T, db, ds_card, ds_jax, offsets, lengths, params,
+              card: str, label: str) -> dict:
+    """All queries through DeviceScorer.best_batch_packed in batches of
+    BATCH on the port's pick and on the JAX pick, interleaved (3 passes
+    each, median); the packs must be equal, and a SAMPLE's best calls
+    equal native.best_call_batch over the searchsorted reference."""
+    import torch
+    chunks = [(np.ascontiguousarray(offsets[a:a + BATCH]),
+               np.ascontiguousarray(lengths[a:a + BATCH]))
+              for a in range(0, len(offsets), BATCH)]
+
+    def run(ds):
+        return [ds.best_batch_packed(o, n, params).cpu().numpy()
+                for o, n in chunks]
+
+    packs = {"card": run(ds_card), "jax": run(ds_jax)}
+    check(all(np.array_equal(a, b) for a, b in zip(packs["card"],
+                                                   packs["jax"])),
+          f"{label}: best packs differ between the two tiers")
+    spent = {"card": [], "jax": []}
+    for r in range(3):
+        for k in (("card", "jax") if r % 2 == 0 else ("jax", "card")):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            run({"card": ds_card, "jax": ds_jax}[k])
+            torch.cuda.synchronize()
+            spent[k].append(time.time() - t0)
+    rates = {k: len(offsets) / sorted(v)[1] for k, v in spent.items()}
+    pack = np.concatenate(packs["card"])[:SAMPLE]
+    check(not pack[:, 8].any(), f"{label}: a sample row overflowed")
+    fo = db.function_of
+    got = ds_card.finish_best_batch(pack, fo)
+    n_ref, cs, ce, cc, cf, cw, _ = reference_calls(
+        host, T, db, offsets[:SAMPLE], lengths[:SAMPLE], params)
+    nf, ofi, ocnt, owt = host.native.best_call_batch(n_ref, cs, ce, cc, cf,
+                                                     cw)
+    want = [T.finish_best_call(int(nf[s]), ofi[s], ocnt[s], owt[s], fo)
+            for s in range(len(nf))]
+    check(all(vars(g) == vars(w) for g, w in zip(got, want)),
+          f"{label}: best calls differ from the native reference")
+    named = sum(1 for w in want if w.function)
+    check(named > SAMPLE // 2, f"{label}: only {named} sample proteins "
+          f"have a best call")
+    log(f"scale {label}: best_batch_packed on {len(offsets)} spelled "
+        f"proteins: port's pick ({ds_card.ddb.tier}) {rates['card']:.0f} "
+        f"proteins/s, JAX pick ({ds_jax.ddb.tier}) {rates['jax']:.0f} "
+        f"proteins/s (median of 3, interleaved, upload to the pack home); "
+        f"packs equal; {SAMPLE}-protein sample equal to native best-call "
+        f"on the searchsorted reference ({int(n_ref.sum())} calls, {named} "
+        f"named); {card}")
+    return dict(rates, passes=spent)
+
+
+def phase_scale(host, T, n_keys: int, which, params, flush, card: str):
+    """The scale phase: for each scale DB of ``which`` (SCALE_DBS names),
+    ``n_keys`` keys made on the card by make_scale_db.scale_db, its
+    statistics and each gate set's pick; probe_search against its plain
+    version and numpy searchsorted on 1,245,184 windows (BATCH spelled
+    proteins); every tier that fits timed on the same windows; the
+    65,536-protein best-call pass on the port's pick and the JAX pick.
+    Returns {label: results}."""
+    import torch
+    from close_kmers_tpu_torch.scripts.make_scale_db import scale_db
+    dev = flush.device
+    out = {}
+    for label, aa_bias, seed in SCALE_DBS:
+        if label not in which:
+            continue
+        t0 = time.time()
+        db = scale_db(n_keys, aa_bias=aa_bias, seed=seed, device=dev)
+        t_gen = time.time() - t0
+        t0 = time.time()
+        st = T.tier_stats(db)
+        pick, jpick = T.card_tier(db), T.flag_tier(st)
+        nbytes_ = {t: T.tier_bytes(st, t) for t in T.TIERS}
+        log(f"scale {label}: {len(db):,} keys made on the card in "
+            f"{t_gen:.1f} s (stats {time.time() - t0:.1f} s): max bucket "
+            f"{st.max_bucket}, max sub {st.max_sub}, {st.n_sub:,} sub-"
+            f"buckets, fi max {st.fi_max}; the port picks {pick}, "
+            f"the JAX gates {jpick}; table bytes {json.dumps(nbytes_)}")
+        t0 = time.time()
+        offsets, lengths = scale_spelled(db, N_QUERY, seed)
+        off_b = torch.from_numpy(offsets[:BATCH]).to(dev)
+        len_b = torch.from_numpy(lengths[:BATCH]).to(dev)
+        flat = T.encode_windows(off_b, len_b)
+        log(f"scale {label}: {N_QUERY} spelled queries in "
+            f"{time.time() - t0:.1f} s")
+        t0 = time.time()
+        ddb_bin = T.DeviceDB.from_db(db, dev)
+        torch.cuda.synchronize()
+        check(ddb_bin.tier == pick == "binary_search",
+              f"{label}: from_db built {ddb_bin.tier}")
+        log(f"scale {label}: the port's pick (from_db, no flags) built and "
+            f"uploaded in {time.time() - t0:.1f} s")
+        rec = probe_search_record(T, db, ddb_bin, tuple(
+            x.reshape(-1) for x in flat), flush, f"the {label} scale DB")
+        want = T.probe_windows(ddb_bin, *flat)
+        t0 = time.time()
+        keep = {"binary_search": ddb_bin}
+        if jpick not in keep:
+            keep[jpick] = T.DeviceDB.from_db(db, dev,
+                                             **T.JAX_TIER_FLAGS[jpick])
+        torch.cuda.synchronize()
+        check(keep[jpick].tier == jpick, f"{label}: the JAX flags built "
+              f"{keep[jpick].tier}")
+        log(f"scale {label}: the JAX pick (from_db, its flags) built and "
+            f"uploaded in {time.time() - t0:.1f} s")
+        tiers = tier_sweep(T, db, st, flat, want, f"scale {label}", keep)
+        from close_kmers_tpu_torch.core.device_score import DeviceScorer
+        e2e = scale_e2e(host, T, db, DeviceScorer(db, dev, keep[pick]),
+                        DeviceScorer(db, dev, keep[jpick]), offsets, lengths,
+                        params, card, label)
+        out[label] = dict(keys=len(db), stats=dataclasses.asdict(st),
+                          card_tier=pick, jax_tier=jpick, tiers=tiers,
+                          e2e=e2e, probe_search=rec)
+        del db, keep, ddb_bin, want, flat, off_b, len_b
+        torch.cuda.empty_cache()
+    return out
+
+
+def deep_sweeps(T, GX, dev, keep_deep: dict) -> dict:
+    """The tier sweep on deep DBs of PATRIC density: gather_exp's deep DB
+    (its EXP_DEEP_KEYS keys over EXP_DEEP_SPAN hi buckets, whose tables
+    ``keep_deep`` holds, {tier: DeviceDB}, the binary search among them) and the same keys over each
+    span of DEEP_SPANS, deeper buckets and sub-buckets; BATCH spelled
+    proteins' windows each.  Returns {label: (stats, picks, sweep)}."""
+    import torch
+    out = {}
+    for span in (GX.EXP_DEEP_SPAN, *DEEP_SPANS):
+        label = f"deep {span}"
+        db = GX.deep_db(hi_span=span)
+        st = T.tier_stats(db)
+        off, ln = spelled_queries(db, BATCH, np.random.default_rng(span))
+        flat = T.encode_windows(torch.from_numpy(off).to(dev),
+                                torch.from_numpy(ln).to(dev))
+        keep = (keep_deep if span == GX.EXP_DEEP_SPAN else
+                {"binary_search": T.DeviceDB.from_db(db, dev)})
+        want = T.probe_windows(keep["binary_search"], *flat)
+        picks = (T.card_tier(db), T.flag_tier(st))
+        log(f"tiers {label}: {len(db):,} keys, max bucket {st.max_bucket}, "
+            f"max sub {st.max_sub}, {st.n_sub:,} sub-buckets; the port "
+            f"picks {picks[0]}, the JAX gates {picks[1]}")
+        out[label] = (dataclasses.asdict(st), picks,
+                      tier_sweep(T, db, st, flat, want, label, keep))
+        del db, flat, want
+        torch.cuda.empty_cache()
+    return out
+
+
+def run_scale(host, T, wrappers, n_keys: int, which, params, device,
+              card: str):
+    """:func:`phase_scale` as a path of its own: every kernel's count set
+    to 0 just before it and read just after; the kernels of SCALE_KERNELS
+    must each have launched in it.  Returns (its results, its counts)."""
+    import torch
+    for fn in wrappers.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    flush = torch.empty(64 << 20, dtype=torch.int32, device=device)
+    scale = phase_scale(host, T, n_keys, which, params, flush, card)
+    del flush
+    counts = {name: fn.launches for name, fn in wrappers.items()}
+    peak = torch.cuda.max_memory_allocated()
+    log(f"phase 4 scale: {time.time() - t0:.1f} s; launches on the scale "
+        f"path: {json.dumps(counts)}; peak device memory {peak} B "
+        f"({peak / 2**30:.2f} GiB); {card}")
+    for name in SCALE_KERNELS:
+        check(counts[name] > 0, f"{name} was never launched on the scale "
+              f"path")
+    return scale, counts
+
+
+def scale_record(scale: dict) -> dict:
+    """probe_search's kernel record: the skewed scale DB's numbers (the
+    DB the port's ladder sends to the binary search), the other DBs'
+    beside them."""
+    label = "skewed" if "skewed" in scale else next(iter(scale))
+    rec = dict(name="probe_search", route="cuda",
+               source="close_kmers_tpu_torch/csrc/probe_search.cu",
+               replaces="close_kmers_tpu/core/engine.py:603",
+               db=label, **scale[label]["probe_search"])
+    rec.update({k: v["probe_search"] for k, v in scale.items()
+                if k != label})
+    return rec
+
+
+def scale_only(host, T, wrappers, args, params, device, kind: str,
+               card: str, t_start: float) -> int:
+    """``--scale-only``: the scale phase alone on the DBs named (with
+    ``deep``, the deep DBs' tier sweeps before it), then its kernel
+    record, the nvidia-smi line and the device line."""
+    import torch
+    from close_kmers_tpu_torch.scripts import gather_exp as GX
+    if "deep" in args.scale_only:
+        deep_sweeps(T, GX, device, {"binary_search": T.DeviceDB.from_db(
+            GX.deep_db(), device)})
+        torch.cuda.empty_cache()
+    scale, counts = run_scale(host, T, wrappers, args.scale_keys,
+                              args.scale_only, params, device, card)
+    log(f"scale phase passed in {time.time() - t_start:.1f} s: "
+        + json.dumps({k: dict(stats=v["stats"], card_tier=v["card_tier"],
+                              jax_tier=v["jax_tier"],
+                              e2e={t: round(r) for t, r in v["e2e"].items()
+                                   if t != "passes"})
+                      for k, v in scale.items()}))
+    print(json.dumps({"kernels": [dict(scale_record(scale),
+                                       launches=counts["probe_search"])]}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+def tier_e2e(args, kind: str) -> int:
+    """``--tier-e2e N``: the query DB's end-to-end rates on the
+    payload_wide and binary-search tiers (forced by the JAX flags, which
+    every tree of the port takes) and on from_db's own pick, N rounds in
+    turns, the order reversed every other round: 65,536 proteins through
+    best_batch_packed (the device pack, to arrays) and through the slim
+    pack + native best-call, the 5-Mbp genome through
+    GenomeAnnotator.calls_of, and the 2,048-protein /matrix request
+    through DeviceMatrix.count_pairs.  Every reading is printed; the
+    tiers' packs, genome calls and matrix pairs must be equal.  With
+    ``--port-root DIR`` the port is imported from DIR (e.g. the parent
+    commit unpacked by git archive), so that two trees' rates can be read
+    in turns, one process each."""
+    import copy
+    import torch
+    root = os.path.abspath(args.port_root or REPO)
+    sys.path.insert(0, root)
+    from close_kmers_tpu_torch import params as P
+    from close_kmers_tpu_torch.core import engine as T
+    from close_kmers_tpu_torch.core import genome as TG
+    from close_kmers_tpu_torch.core import matrix as TM
+    from close_kmers_tpu_torch.core.device_score import DeviceScorer
+    from close_kmers_tpu_torch.db import signature_db
+    from close_kmers_tpu_torch.native import api as native
+    from close_kmers_tpu_torch.ops import _build, encoder, translate
+    from close_kmers_tpu_torch.utils.device import (
+        gpu_name_and_power_limit, resolve_device)
+    check(os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(T.__file__)))) == root, f"the port was imported from {T.__file__}, not {root}")
+    host = types.SimpleNamespace(SignatureDB=signature_db.SignatureDB,
+                                 encoder=encoder, native=native,
+                                 translate=translate)
+    card = gpu_name_and_power_limit()
+    device = resolve_device("cuda")
+    t0 = time.time()
+    _build.build(force=True)
+    db, offsets, lengths, src_rng = build_corpus(host)
+    params = P.EngineParams()
+    forced = {"payload_wide": dict(wide=True, wide_payload=True),
+              "binary_search": dict(wide=False, fused=False, sub=False,
+                                    wide_lo=False)}
+    base = DeviceScorer(db, device)
+    auto = base.ddb.tier
+    scorers = {}
+    for tier, flags in forced.items():
+        scorers[tier] = copy.copy(base)
+        scorers[tier].ddb = (base.ddb if tier == auto else
+                             T.DeviceDB.from_db(db, device, **flags))
+        check(scorers[tier].ddb.tier == tier, f"{tier} built "
+              f"{scorers[tier].ddb.tier}")
+    check(auto in scorers, f"from_db picked {auto}")
+    genome = synth_genome(np.random.default_rng(4), offsets[:, :PROT_LEN],
+                          GENOME_BASES)
+    digits = translate._DNA_CHAR[translate._to_bytes(genome)]
+    offs, vals, rank = matrix_csr(db, src_rng)
+    off_m, len_m = offsets[:MATRIX_P], lengths[:MATRIX_P]
+    chunks = [(np.ascontiguousarray(offsets[a:a + BATCH]),
+               np.ascontiguousarray(lengths[a:a + BATCH]))
+              for a in range(0, N_QUERY, BATCH)]
+    slim = base.slim_mode()
+    unpack = {2: base.unpack_dense2, 3: base.unpack_dense3}[slim]
+
+    def best(ds):
+        return [ds.best_batch_packed(o, n, params).cpu().numpy()
+                for o, n in chunks]
+
+    def slim_native(ds):
+        out = []
+        for o, n in chunks:
+            cap = 2
+            while True:
+                pk, cap_n = ds.score_batch_packed(o, n, params,
+                                                  calls_per_seq_cap=cap,
+                                                  slim=slim)
+                dense = unpack(pk.cpu().numpy(), len(o), cap_n)
+                if dense is not None:
+                    break
+                cap *= 4
+            n_calls, cc, cf, cw = dense
+            out.append(native.best_call_batch(n_calls, None, None, cc, cf,
+                                              cw))
+        return out
+
+    progs = {}
+    for tier, ds in scorers.items():
+        ga, dm = TG.GenomeAnnotator(ds), TM.DeviceMatrix(ds, max_deg=3)
+        po, pv = dm.stage_csr(offs, vals)
+        progs[tier] = dict(
+            best=lambda ds=ds: best(ds),
+            slim_native=lambda ds=ds: slim_native(ds),
+            genome=lambda ga=ga: ga.calls_of(digits, params),
+            matrix=lambda dm=dm, po=po, pv=pv: dm.count_pairs(
+                off_m, len_m, po, pv, rank))
+    work = {"best": N_QUERY, "slim_native": N_QUERY,
+            "genome": len(genome) / 1e6, "matrix": MATRIX_P}
+    outs = {tier: {k: fn() for k, fn in p.items()}       # warm-up, kept
+            for tier, p in progs.items()}
+    a, b = (outs[t] for t in forced)
+    check(all(np.array_equal(x, y) for x, y in zip(a["best"], b["best"])),
+          "tier e2e: the tiers' best packs differ")
+    check(all(all(np.array_equal(x, y) for x, y in zip(u, v))
+              for u, v in zip(a["slim_native"], b["slim_native"])),
+          "tier e2e: the tiers' native best calls differ")
+    check(np.array_equal(a["genome"][0], b["genome"][0])
+          and a["genome"][1] == b["genome"][1],
+          "tier e2e: the tiers' genome calls differ")
+    check(a["matrix"] == b["matrix"], "tier e2e: the tiers' matrix pairs "
+          "differ")
+    del outs, a, b
+    log(f"tier e2e: {root}: {len(db):,} keys, from_db picks {auto}; "
+        f"set-up {time.time() - t0:.1f} s; every tier's packs, best calls, "
+        f"genome calls and matrix pairs equal")
+    spent = {t: {k: [] for k in work} for t in progs}
+    order = list(progs)
+    for r in range(args.tier_e2e):
+        for tier in (order if r % 2 == 0 else order[::-1]):
+            for k, fn in progs[tier].items():
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                fn()
+                torch.cuda.synchronize()
+                spent[tier][k].append(time.perf_counter() - t1)
+    rates = {t: {k: [work[k] / s for s in v] for k, v in d.items()}
+             for t, d in spent.items()}
+    medians = {t: {k: float(np.median(v)) for k, v in d.items()}
+               for t, d in rates.items()}
+    profiles = {t: {k: device_share(progs[t][k]) for k in ("genome",
+                                                           "matrix")}
+                for t in progs}
+    log(f"tier e2e: every reading (best and slim_native proteins/s, genome "
+        f"Mbp/s, matrix proteins/s), {args.tier_e2e} rounds in turns: "
+        f"{json.dumps(rates)}")
+    log(f"tier e2e: one genome pass and one matrix request profiled: "
+        f"{json.dumps(profiles)}")
+    print(json.dumps({"tier_e2e": dict(root=root, auto=auto,
+                                       medians=medians)}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+def parse_args(argv: list[str]):
+    import argparse
+    ap = argparse.ArgumentParser(
+        description="Smoke run of the torch port on one NVIDIA card.")
+    ap.add_argument("--compare", action="append", default=[],
+                    metavar="LABEL=DIR",
+                    help="a tree (e.g. the parent commit unpacked by git "
+                         "archive) whose best_call kernel and wrapper "
+                         "phase 2 times in turns with this tree's")
+    ap.add_argument("--scale-keys", type=int, default=SCALE_KEYS,
+                    help="keys of each scale-phase DB (default "
+                         f"{SCALE_KEYS:,})")
+    ap.add_argument("--sweep-cap", type=float, default=SWEEP_MAX_BYTES / 2**30,
+                    metavar="GB", help="the largest tables a tier sweep "
+                    "builds beside the gates' picks (default "
+                    f"{SWEEP_MAX_BYTES / 2**30:g} GB)")
+    ap.add_argument("--scale-only", default=None, metavar="DBS",
+                    help="run phase 1 and the scale phase alone, on the "
+                         "comma-separated scale DBs named (uniform, "
+                         "skewed), and with deep the deep DBs' tier "
+                         "sweeps first")
+    ap.add_argument("--tier-e2e", type=int, default=None, metavar="ROUNDS",
+                    help="run the query DB's end-to-end rates on its tiers "
+                         "alone, ROUNDS rounds in turns (see tier_e2e)")
+    ap.add_argument("--port-root", default=None, metavar="DIR",
+                    help="with --tier-e2e: import the port from DIR")
+    args = ap.parse_args(argv)
+    if args.port_root is not None and args.tier_e2e is None:
+        ap.error("--port-root goes with --tier-e2e")
+    if any("=" not in v for v in args.compare):
+        ap.error("--compare takes LABEL=DIR")
+    names = ["deep"] + [label for label, _, _ in SCALE_DBS]
+    if args.scale_only is not None:
+        args.scale_only = args.scale_only.split(",")
+        if (not set(args.scale_only) <= set(names)
+                or set(args.scale_only) <= {"deep"}):
+            ap.error(f"--scale-only names DBs of {names}, a scale DB "
+                     f"among them")
+    return args
+
+
 def main(argv: list[str]) -> int:
-    """``argv``: optional ``--compare LABEL=DIR`` pairs, each a tree (e.g.
-    the parent commit unpacked by ``git archive``) whose best_call kernel
-    and wrapper phase 2 times in turns with this tree's."""
-    if len(argv) % 2 or any(f != "--compare" or "=" not in v
-                            for f, v in zip(argv[::2], argv[1::2])):
-        print("usage: chip_smoke.py [--compare LABEL=DIR ...]",
-              file=sys.stderr)
-        return 2
-    trees = dict(v.split("=", 1) for v in argv[1::2])
+    """``argv``: see :func:`parse_args`."""
+    global SWEEP_MAX_BYTES
+    args = parse_args(argv)
+    trees = dict(v.split("=", 1) for v in args.compare)
+    SWEEP_MAX_BYTES = int(args.sweep_cap * 2**30)
     try:
         import torch
     except ImportError:
@@ -2602,6 +3295,8 @@ def main(argv: list[str]) -> int:
         print("no CUDA card: torch.cuda.is_available() is False",
               file=sys.stderr)
         return 1
+    if args.tier_e2e is not None:
+        return tier_e2e(args, torch.cuda.get_device_name(0))
     sys.path.insert(0, REPO)
     try:
         from close_kmers_tpu_torch import params as P
@@ -2620,6 +3315,7 @@ def main(argv: list[str]) -> int:
         from close_kmers_tpu_torch.ops.best_call import best_call
         from close_kmers_tpu_torch.ops import gather_exp as gx
         from close_kmers_tpu_torch.ops.family_group import family_group
+        from close_kmers_tpu_torch.ops.probe_search import probe_search
         from close_kmers_tpu_torch.ops.probe_select import (famwide_select,
                                                             probe_select)
         from close_kmers_tpu_torch.ops.row_gather import row_gather
@@ -2647,7 +3343,8 @@ def main(argv: list[str]) -> int:
                 "row_gather": row_gather, "famwide_select": famwide_select,
                 "family_group": family_group, "dma_gather": gx.dma_gather,
                 "vgather": gx.vgather, "hbmstream": gx.hbmstream,
-                "dmaflush": gx.dmaflush, "best_call": best_call}
+                "dmaflush": gx.dmaflush, "best_call": best_call,
+                "probe_search": probe_search}
 
     # -- phase 1: device and build
     log(f"card: {card} (torch {torch.__version__}, CUDA {torch.version.cuda},"
@@ -2655,6 +3352,10 @@ def main(argv: list[str]) -> int:
     t0 = time.time()
     _build.build(force=True, verbose=True)
     log(f"phase 1: nvcc built {_build.LIB} in {time.time() - t0:.1f} s")
+    params = host.EngineParams()
+    if args.scale_only is not None:
+        return scale_only(host, T, wrappers, args, params, device, kind,
+                          card, t_start)
 
     # -- set-up: the real-size DBs, family universe and queries (host)
     t0 = time.time()
@@ -2663,12 +3364,13 @@ def main(argv: list[str]) -> int:
     log(f"set-up: corpus + DB of {len(db):,} kmers (max bucket "
         f"{db.max_bucket}) and {len(mapping.families):,} families built "
         f"on the host in {time.time() - t0:.1f} s")
-    params = host.EngineParams()
     t0 = time.time()
     ds = DeviceScorer(db, device)
     eng = KmerEngine(dbf, device)
     torch.cuda.synchronize()
-    log(f"set-up: two payload-wide tables {tuple(ds.ddb.payload_wide.shape)} "
+    check(ds.ddb.tier == eng.fa.ddb.tier == T.card_tier(db),
+          f"the query DB took the {ds.ddb.tier} tier")
+    log(f"set-up: two {ds.ddb.tier} tables of {table_bytes(T, ds.ddb)} B "
         f"built and uploaded in {time.time() - t0:.1f} s")
     t0 = time.time()
     dfs = eng._device_family_scorer(mapping)
@@ -2690,11 +3392,10 @@ def main(argv: list[str]) -> int:
     ds_deep = DeviceScorer(db_deep, device)
     eng_deep = KmerEngine(db_deep, device)
     torch.cuda.synchronize()
-    check(ds_deep.ddb.tier == eng_deep.fa.ddb.tier == "sub_blocks",
-          f"the deep DB took the {ds_deep.ddb.tier} tier, not sub_blocks")
-    log(f"set-up: two sub_blocks tables (header "
-        f"{tuple(ds_deep.ddb.sub_header.shape)}, blocks "
-        f"{tuple(ds_deep.ddb.sub_blocks.shape)}, sub_w {ds_deep.ddb.sub_w}) "
+    check(ds_deep.ddb.tier == eng_deep.fa.ddb.tier == T.card_tier(db_deep),
+          f"the deep DB took the {ds_deep.ddb.tier} tier")
+    log(f"set-up: two {ds_deep.ddb.tier} tables of "
+        f"{table_bytes(T, ds_deep.ddb)} B (n_steps {ds_deep.ddb.n_steps}) "
         f"built and uploaded in {time.time() - t0:.1f} s")
     t0 = time.time()
     genome = synth_genome(np.random.default_rng(4), offsets[:, :PROT_LEN],
@@ -2704,38 +3405,59 @@ def main(argv: list[str]) -> int:
         f"synth_genome, seed 4) in {time.time() - t0:.1f} s")
 
     # -- phase 2: kernels against their plain versions, tiers against the
-    # payload-wide probe
+    # auto-ladder's probe
     off_d = torch.from_numpy(offsets[:BATCH]).to(device)
     len_d = torch.from_numpy(lengths[:BATCH]).to(device)
     flush = torch.empty(64 << 20, dtype=torch.int32, device=device)
     d_off_b = torch.from_numpy(d_off[:BATCH]).to(device)
     d_len_b = torch.from_numpy(d_len[:BATCH]).to(device)
     compare = {k: best_call_tree(v, k) for k, v in trees.items()}
+    # probe_select's tiers, built by name: the query DB's payload-wide
+    # rows and the deep DB's sub blocks
+    pw = T.DeviceDB.from_numpy(T.tier_tables(db, "payload_wide"), device,
+                               copy=False)
+    sub_deep = T.DeviceDB.from_numpy(T.tier_tables(db_deep, "sub_blocks"),
+                                     device, copy=False)
     kernels = phase_kernels(
-        T, ds.ddb, off_d, len_d, params, flush,
+        T, pw, off_d, len_d, params, flush,
         scan_calls(T, S, ds_deep.ddb, d_off_b, d_len_b, params), compare)
+    del pw
     reads, n_orfs, fq_chunk = make_reads(host, eng, offsets)
     kernels.update(phase_family_kernels(T, TF, dfs, off_d, len_d, fq_chunk,
                                         flush))
     kernels["probe_select"]["sub_blocks"] = phase_sub_select(
-        T, ds_deep.ddb, d_off_b, d_len_b, flush)
-    kernels["probe_select"]["genome"], kernels["scan_score"]["genome"] = \
+        T, sub_deep, d_off_b, d_len_b, flush)
+    # probe_search at the main path's shapes: the query cell, the deep
+    # cell, the genome's tile windows, one matrix chunk
+    search_recs = {
+        label: time_search(d.ddb, tuple(x.reshape(-1) for x in
+                                        T.encode_windows(o, n)),
+                           flush, f"the {label} cell's windows")[1]
+        for label, d, o, n in (("query", ds, off_d, len_d),
+                               ("deep", ds_deep, d_off_b, d_len_b))}
+    search_recs["genome"], kernels["scan_score"]["genome"] = \
         phase_genome_kernels(T, TG, S, eng.fa.ddb,
                              torch.from_numpy(g_digits).to(device), g_n,
                              params, flush)
     m_hi, m_lo, m_valid = T.encode_windows(
         torch.from_numpy(offsets[:MATRIX_P]).to(device),
         torch.from_numpy(lengths[:MATRIX_P]).to(device))
-    kernels["probe_select"]["matrix"] = time_probe(
-        (m_hi.reshape(-1), m_lo.reshape(-1), m_valid.reshape(-1)),
-        eng.fa.ddb.payload_wide, eng.fa.ddb.wide_w, eng.fa.ddb.n, flush,
-        "one matrix chunk's windows")[1]
+    search_recs["matrix"] = time_search(
+        eng.fa.ddb, (m_hi.reshape(-1), m_lo.reshape(-1), m_valid.reshape(-1)),
+        flush, "one matrix chunk's windows")[1]
     del m_hi, m_lo, m_valid
     del flush
     kernels.update(phase_gather_kernels(device))
-    log(f"phase 2: all {len(kernels)} kernels equal their plain versions")
+    log(f"phase 2: all {len(kernels) + 1} kernels equal their plain versions "
+        f"(probe_search's scale-DB record comes with the scale phase)")
     tiers = phase_tiers(T, db, ds.ddb, off_d, len_d)
-    log(f"phase 2: all {len(tiers)} tier probes equal the payload-wide probe")
+    log(f"phase 2: all {len(tiers)} tier probes equal the {ds.ddb.tier} "
+        f"probe")
+    deep_tiers = deep_sweeps(T, GX, device, {"binary_search": ds_deep.ddb,
+                                             "sub_blocks": sub_deep})
+    del sub_deep
+    log(f"phase 2: tier sweeps of {len(deep_tiers)} deep DBs: every tier "
+        f"built equals the binary search")
 
     # -- the main path, counted (and its peak device memory)
     for fn in wrappers.values():
@@ -2757,18 +3479,25 @@ def main(argv: list[str]) -> int:
     rate_reads, rate_orfs = phase_reads(eng, mapping, reads, n_orfs, params)
     gen = phase_genome(host, T, TG, eng, db, genome, params)
     mat = phase_matrix(host, TM, eng, db, offsets, lengths, src_rng)
-    before = probe_select.launches
+    deep_probe, deep_tier = probe_kernel(ds_deep.ddb), ds_deep.ddb.tier
+    before = deep_probe.launches
     rate_deep, rate_deep_eng, best_d = phase_query(
         host, T, ds_deep, eng_deep, db_deep, d_off, d_len, params, "deep",
         card)
-    sub_launches = probe_select.launches - before
+    deep_launches = deep_probe.launches - before
+    log(f"phase 4: gather_exp experiments ({', '.join(GX.EXPERIMENTS)})")
+    before = probe_select.launches
+    exp = GX.run(GX.EXPERIMENTS, device, deep=db_deep)
+    gx_select = probe_select.launches - before
+    kept = phase_build_db()
+    launches = {name: fn.launches for name, fn in wrappers.items()}
+    peak = torch.cuda.max_memory_allocated()
+    log(f"phase 4: peak device memory {peak} B ({peak / 2**30:.2f} GiB)")
 
     # -- the sharded serving path, its counts set to 0 just before it and
-    # read just after (then added back to the main path's)
-    saved = {name: fn.launches for name, fn in wrappers.items()}
+    # read just after
     for fn in wrappers.values():
         fn.launches = 0
-    peak_before = torch.cuda.max_memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
     shard = phase_sharded(TF, ds, eng, dfs, dbf, offsets, lengths, params,
@@ -2776,8 +3505,6 @@ def main(argv: list[str]) -> int:
     phase_sharded_golden()
     shard_peak = torch.cuda.max_memory_allocated()
     shard_counts = {name: fn.launches for name, fn in wrappers.items()}
-    for name, fn in wrappers.items():
-        fn.launches += saved[name]
     log(f"phase 4 sharded: {time.time() - t0:.1f} s; launches on the "
         f"sharded path: {json.dumps(shard_counts)}, of them by the sharded "
         f"calls alone {json.dumps(shard['launches'])}; probe_select on the "
@@ -2791,24 +3518,31 @@ def main(argv: list[str]) -> int:
     check(shard["deep_probe_launches"] > 0,
           "probe_select never ran on the shards' sub blocks")
     del ds_deep, eng_deep
+
+    # -- the scale path, its counts set to 0 just before it and read just
+    # after
+    del ds, eng, dfs, mapping
     torch.cuda.empty_cache()
-    log(f"phase 4: gather_exp experiments ({', '.join(GX.EXPERIMENTS)})")
-    exp = GX.run(GX.EXPERIMENTS, device, deep=db_deep)
-    kept = phase_build_db()
-    peak = max(peak_before, torch.cuda.max_memory_allocated())
-    log(f"phase 4: peak device memory {peak} B ({peak / 2**30:.2f} GiB)")
+    scale, scale_counts = run_scale(host, T, wrappers, args.scale_keys,
+                                    [label for label, _, _ in SCALE_DBS],
+                                    params, device, card)
+    kernels["probe_search"] = dict(scale_record(scale), **search_recs)
 
     # -- phase 5: the main path went through every kernel
-    launches = {name: fn.launches for name, fn in wrappers.items()}
-    log(f"phase 5: launches on the main path: {launches}; probe_select on "
-        f"the deep DB's sub_blocks path: {sub_launches}; on the genome path "
-        f"(one genome) probe_select {gen['launches'][0]}, scan_score "
+    log(f"phase 5: launches on the main path: {launches}, probe_select "
+        f"among them {gx_select} by gather_exp's deepcmp (deep_sub, the "
+        f"deep DB's sub blocks forced by the JAX flags) and none on /query, "
+        f"the genome or /matrix (the binary search); "
+        f"{deep_probe.__name__} on the deep DB's {deep_tier} path: "
+        f"{deep_launches}; on the genome path (one genome) "
+        f"{gen['probe']} {gen['launches'][0]}, scan_score "
         f"{gen['launches'][1]}; on the matrix path (one request) "
-        f"probe_select {mat['launches']}; best_call a 65,536-protein pass "
+        f"{mat['probe']} {mat['launches']}; best_call a 65,536-protein pass "
         f"{best_q['launches']} (query), {best_d['launches']} (deep)")
     for name, n in launches.items():
         check(n > 0, f"{name} was never launched on the main path")
-    check(sub_launches > 0, "probe_select never ran on the sub_blocks path")
+    check(deep_launches > 0, f"{deep_probe.__name__} never ran on the deep "
+          f"DB's path")
     check(min(gen["launches"]) > 0 and mat["launches"] > 0,
           "the genome or matrix path missed a kernel")
     log(f"all phases passed in {time.time() - t_start:.1f} s; "
@@ -2817,7 +3551,7 @@ def main(argv: list[str]) -> int:
         f"/fq_lookup {rate_reads:.0f} reads/s ({rate_orfs:.0f} ORF "
         f"proteins/s), genome {gen['mbp_s']:.2f} Mbp/s ({gen['rounds']} "
         f"fixpoint rounds), matrix {mat['proteins_s']:.0f} proteins/s, "
-        f"deep DB (sub_blocks) DeviceScorer {rate_deep:.0f} / "
+        f"deep DB ({deep_tier}) DeviceScorer {rate_deep:.0f} / "
         f"KmerEngine {rate_deep_eng:.0f} proteins/s, deep_sub "
         f"{exp['deep_sub'] * 1e3:.4f} ms / deep_bin "
         f"{exp['deep_bin'] * 1e3:.4f} ms per {GX.N_IDX} windows, tier probes "
@@ -2832,11 +3566,14 @@ def main(argv: list[str]) -> int:
         f"fallback; build_db "
         f"kept {kept} kmers; sharded step proteins/s "
         f"{json.dumps({str(k): {n: round(r) for n, r in v.items()} for k, v in shard['rates'].items()})}"
-        f" ({shard['nccl']} one-rank group equal); peak {peak} B on {card}")
+        f" ({shard['nccl']} one-rank group equal); scale DBs "
+        f"{json.dumps({k: dict(keys=v['keys'], card_tier=v['card_tier'], jax_tier=v['jax_tier'], proteins_s={t: round(r) for t, r in v['e2e'].items() if t != 'passes'}) for k, v in scale.items()})}"
+        f"; peak {peak} B on {card}")
 
+    # launches: the main path's own; the sharded and scale paths' beside
     records = [dict(kernels[k], launches=launches[k],
-                    **({"sharded_launches": shard["launches"][k]}
-                       if k in SHARD_KERNELS else {})) for k in wrappers]
+                    sharded_launches=shard_counts[k],
+                    scale_launches=scale_counts[k]) for k in wrappers]
     print(json.dumps({"kernels": records}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -146,10 +146,13 @@ class DeviceScorer:
     the packed compact call lists.  On a CUDA device the probe and the
     scan run as the ``probe_select`` and ``scan_score`` kernels."""
 
-    def __init__(self, db, device):
+    def __init__(self, db, device, ddb: DeviceDB | None = None):
+        """``ddb``: ``db``'s tables already on ``device`` (e.g. built in a
+        tier of one's choosing); by default ``DeviceDB.from_db``'s."""
         self.db = db
         self.device = resolve_device(device)
-        self.ddb = DeviceDB.from_db(db, self.device)
+        self.ddb = ddb if ddb is not None else DeviceDB.from_db(db,
+                                                                self.device)
 
     def _upload(self, offsets, lengths):
         return (torch.from_numpy(np.ascontiguousarray(offsets)).to(

@@ -1,8 +1,10 @@
 """Batch engine, torch port of ``close_kmers_tpu/core/engine.py``:
 window encode -> two-level probe -> on-device hit compaction.
 
-Ported: ``DeviceDB`` with every probe tier of the JAX package and its
-auto-ladder (``from_db`` builds the same numpy tables; ``from_numpy``
+Ported: ``DeviceDB`` with every probe tier of the JAX package (``from_db``
+builds the same numpy tables: under the JAX flags, the JAX package's
+pick; with none, the port's own ladder, :func:`card_tier`, whose gates
+were derived for an 80 GB H100; ``from_numpy``
 carries a JAX ``DeviceDB``'s state across; ``device_db_of`` picks the
 table of the genome and matrix programs), ``encode_windows`` in its
 integer log-tree form, ``probe_windows`` (all five tiers),
@@ -24,10 +26,11 @@ The probe tiers, in the order ``probe_windows`` tries them:
 * ``lo_wide``: one row per bucket [start | lo plane], then the payload
   by the matched row;
 * the binary search: a branchless lower bound over the bucket's slice
-  of the sorted lo array, ``n_steps`` halvings, then the payload.
+  of the sorted lo array, ``n_steps`` halvings, then the payload, by the
+  ``probe_search`` kernel.
 
-Every tier but the two that go through ``probe_select`` is plain torch
-on every device, as the JAX package left them to XLA.
+fused_wide and lo_wide are plain torch on every device, as the JAX
+package left them to XLA; the port's ladder never picks them.
 
 Left out on purpose:
 
@@ -54,6 +57,7 @@ from ..params import EngineParams
 from ..db.signature_db import SignatureDB
 from ..ops import encoder
 from . import oracle as O
+from ..ops.probe_search import probe_search
 from ..ops.probe_select import probe_select
 from ..utils.device import resolve_device
 
@@ -70,8 +74,9 @@ def _lane_pad(w: int) -> int:
 
 
 # Auto-ladder gates of the JAX DeviceDB (engine.py:128-148), kept equal so
-# that both packages pick the same tier for every DB.  The byte budgets
-# are TPU v5e HBM budgets, not derived for the card.
+# that ``from_db`` with flags, and the oracle ``jax_tier``, pick what the
+# JAX package picks.  The byte budgets are TPU v5e HBM budgets; the port's
+# own pick is CARD_TIER below.
 WIDE_BUCKET_MAX = 32
 WIDE_PAYLOAD_MAX_BYTES = 2 << 30
 FUSED_LO_BITS = 13
@@ -86,11 +91,132 @@ LO_SENTINEL = 2 ** 30  # empty slot of a lo plane: never matches
 # right shift of a lo code to its sub-bucket (its top log2(SUB) bits)
 SUB_SHIFT = (LO_CARD - 1).bit_length() - (SUB.bit_length() - 1)
 
+TIERS = ("payload_wide", "fused_wide", "sub_blocks", "lo_wide",
+         "binary_search")
+# from_db flags under which the JAX package builds each tier (where its
+# gates inside the flags allow: sub_blocks past SUB_BUCKET_MAX or
+# SUB_MAX_BYTES falls through to lo_wide)
+JAX_TIER_FLAGS = {
+    "payload_wide": dict(wide=True, wide_payload=True),
+    "fused_wide": dict(wide=False, fused=True),
+    "sub_blocks": dict(wide=False, fused=False, sub=True),
+    "lo_wide": dict(wide=False, fused=False, sub=False, wide_lo=True),
+    "binary_search": dict(wide=False, fused=False, sub=False,
+                          wide_lo=False),
+}
+
+# The port's pick, derived for one 80 GB H100 from the card's tier times
+# and table bytes (PERF.md, "tier gates"; chip_smoke.py's tier phase,
+# tier sweeps and scale phase): the binary search (the probe_search
+# kernel) was the fastest tier and the smallest table on every DB
+# measured, 20.5M to 970,978,247 keys and 22- to 4,444-key buckets.  At
+# ~20 B a key half the card holds ~2e9 keys, so no DB a card serves needs
+# another tier, and the pick reads nothing of the DB.  The JAX flags
+# still build every tier.
+CARD_TIER = "binary_search"
+
+
+@dataclasses.dataclass(frozen=True)
+class TierStats:
+    """What the tier gates read of a DB: its keys ``n``, hi buckets ``H``,
+    deepest bucket, largest function index, deepest sub-bucket and
+    non-empty sub-buckets."""
+
+    n: int
+    H: int
+    max_bucket: int
+    fi_max: int
+    max_sub: int
+    n_sub: int
+
+
+def _sub_runs(db: SignatureDB):
+    """The non-empty sub-buckets of ``db`` in key order: (sub key = hi *
+    SUB + the lo code's top bits, first row, rows).  The keys are sorted,
+    so the sub keys are too and each sub-bucket is one run: the
+    ``np.unique`` of the JAX package without its sort."""
+    H = len(db.bucket_start) - 1
+    skey = db.hi.astype(np.int32 if H * SUB < 2 ** 31 else np.int64) * SUB \
+        + (db.lo >> SUB_SHIFT)
+    if not len(skey):
+        return skey, skey, skey
+    first = np.flatnonzero(np.diff(skey)) + 1
+    ustart = np.concatenate([np.zeros(1, np.int64), first])
+    return skey[ustart], ustart, np.diff(np.append(ustart, len(skey)))
+
+
+def tier_stats(db: SignatureDB) -> TierStats:
+    """The :class:`TierStats` of ``db``."""
+    n = len(db)
+    _, _, ucnt = _sub_runs(db)
+    return TierStats(n=n, H=len(db.bucket_start) - 1,
+                     max_bucket=int(db.max_bucket),
+                     fi_max=int(db.fi.max()) if n else 0,
+                     max_sub=int(ucnt.max()) if n else 0, n_sub=len(ucnt))
+
+
+def tier_bytes(st: TierStats, tier: str) -> int:
+    """Bytes of the tables :meth:`DeviceDB.from_db` uploads for ``tier``,
+    the one-row dummies of the arrays the layout makes dead included."""
+    W = max(1, st.max_bucket)
+    pair, lo, payload = st.H * 8, (st.n + 1) * 4, (st.n + 1) * 16
+    if tier == "binary_search" or st.n == 0:
+        return pair + lo + payload
+    if tier == "payload_wide":
+        return st.H * _lane_pad(1 + 5 * W) * 4 + 4 + 16
+    if tier == "sub_blocks":
+        return ((st.n_sub + 1) * _lane_pad(1 + 5 * st.max_sub) * 4
+                + st.H * SUB * 4 + 4 + 16)
+    if tier == "fused_wide":
+        return st.H * _lane_pad(1 + 2 * W) * 4 + 4 + payload
+    if tier == "lo_wide":
+        return st.H * _lane_pad(1 + W) * 4 + 4 + payload
+    raise ValueError(f"unknown tier {tier!r}")
+
+
+def flag_tier(st: TierStats, wide=None, wide_payload=None, sub=None,
+              wide_lo=None, fused=None) -> str:
+    """The tier the JAX ``DeviceDB.from_db`` (engine.py:150-296) builds
+    for a DB of stats ``st`` under its flags: each forces its layout on or
+    off, and None leaves it to the JAX gates (the v5e budgets).  With no
+    flags, the JAX auto-ladder's pick."""
+    if st.n == 0:
+        return "binary_search"
+    H, W = st.H, max(1, st.max_bucket)
+    if wide is None:
+        wide = 0 < st.max_bucket <= WIDE_BUCKET_MAX
+    if wide_payload is None:
+        wide_payload = wide and H * (1 + 5 * W) * 4 <= WIDE_PAYLOAD_MAX_BYTES
+    if wide and wide_payload:
+        return "payload_wide"
+    if fused is None:
+        fused = (st.fi_max < (1 << (31 - FUSED_LO_BITS))
+                 and 0 < st.max_bucket <= FUSED_BUCKET_MAX
+                 and H * _lane_pad(1 + 2 * W) * 4 <= FUSED_MAX_BYTES)
+    if fused:
+        return "fused_wide"
+    if sub is None:
+        sub = not wide
+    if (sub and not wide and st.max_sub <= SUB_BUCKET_MAX
+            and (st.n_sub + 1) * (1 + 5 * st.max_sub) * 4 <= SUB_MAX_BYTES):
+        return "sub_blocks"
+    if wide_lo is None:
+        wide_lo = wide or H * _lane_pad(1 + W) * 4 <= LO_WIDE_MAX_BYTES
+    return "lo_wide" if wide_lo else "binary_search"
+
+
+def card_tier(db: SignatureDB) -> str:
+    """The tier :meth:`DeviceDB.from_db` with no flags builds for ``db``:
+    the oracle of the port's pick, as :func:`jax_tier` is of the JAX
+    package's.  CARD_TIER for every DB."""
+    return CARD_TIER
+
 
 def jax_tier(db: SignatureDB) -> str:
     """The probe tier the JAX auto-ladder (``DeviceDB.from_db`` with no
-    flags) picks for ``db``, derived from the gates alone: the oracle
-    that the tests hold :meth:`DeviceDB.from_db`'s choice against."""
+    flags) picks for ``db``, derived from the gates alone: the oracle of
+    the JAX package's choice, which ``from_db`` builds under the flags
+    that force it."""
     n = len(db)
     if n == 0:
         return "binary_search"
@@ -131,6 +257,79 @@ def _payload_rows(starts, group, rank, wd: int, planes) -> np.ndarray:
     for p, plane in enumerate(planes):
         flat[base + p * wd] = plane
     return rows
+
+
+def tier_tables(db: SignatureDB, tier: str) -> dict:
+    """The numpy fields of ``db``'s tables in ``tier``, as the JAX
+    ``DeviceDB.from_db`` lays them out (engine.py:150-296): the
+    binary-search arrays ``bucket_pair`` [H, 2], ``lo`` [N+1] and
+    ``payload`` [N+1, 4], or one wide layout with one-row dummies of the
+    arrays it makes dead (``bucket_pair[:0]``, ``lo[:1]``, and
+    ``payload[-1:]`` where the layout carries its own payload).  No gate
+    applies: ``DeviceDB.from_numpy(tier_tables(db, tier), device)`` puts
+    any tier on a device, as the tier measurements do."""
+    if tier not in TIERS:
+        raise ValueError(f"unknown tier {tier!r}")
+    n = len(db)
+    H = len(db.bucket_start) - 1
+    W = max(1, int(db.max_bucket))
+    n_steps = max(1, math.ceil(math.log2(db.max_bucket + 1))) if n else 1
+    starts = db.bucket_start[:-1]
+    planes = (db.lo, db.fi, db.oi, db.avg_off, db.wt.view(np.int32))
+    miss = np.array([[-1, -1, 0, 0]], dtype=np.int32)
+    t = dict(n=n, n_steps=n_steps,
+             bucket_pair=np.zeros((0, 2), np.int32),
+             lo=np.array(db.lo[:1] if n else [-1], dtype=np.int32),
+             payload=miss)
+    if n == 0:
+        tier = "binary_search"
+    if tier in ("payload_wide", "fused_wide", "lo_wide"):
+        # each key's slot within its hi bucket
+        rank = np.arange(n, dtype=np.int64) \
+            - db.bucket_start[db.hi].astype(np.int64)
+    if tier in ("binary_search", "fused_wide", "lo_wide"):
+        payload = np.empty((n + 1, 4), dtype=np.int32)
+        for p in range(4):
+            payload[:n, p] = planes[1 + p]
+        payload[n] = miss
+        t["payload"] = payload
+    if tier == "binary_search":
+        t["bucket_pair"] = np.stack([starts, db.bucket_start[1:]],
+                                    axis=1).astype(np.int32)
+        t["lo"] = np.append(db.lo, np.int32(-1))
+    elif tier == "payload_wide":
+        t["payload_wide"] = _payload_rows(starts, db.hi, rank, W, planes)
+        t["wide_w"] = W
+    elif tier == "fused_wide":
+        row_w = _lane_pad(1 + 2 * W)
+        fw = np.full(H * row_w, FUSED_SENTINEL, dtype=np.int32)
+        fw[::row_w][:H] = starts
+        rows_f = db.hi.astype(np.int64) * row_w
+        fw[rows_f + 1 + rank] = (db.fi.astype(np.int64) << FUSED_LO_BITS) \
+            | db.lo
+        fw[rows_f + 1 + W + rank] = planes[4]
+        t["fused_wide"] = fw.reshape(H, row_w)
+        t["fused_w"] = W
+    elif tier == "sub_blocks":
+        ukeys, ustart, ucnt = _sub_runs(db)
+        nb = len(ukeys)
+        group = np.repeat(np.arange(nb, dtype=np.int64), ucnt)
+        # block nb is the miss row: start n, an empty lo plane
+        t["sub_blocks"] = _payload_rows(
+            np.append(ustart, n), group,
+            np.arange(n, dtype=np.int64) - ustart[group], int(ucnt.max()),
+            planes)
+        header = np.full((H, SUB), nb, dtype=np.int32)
+        header[ukeys // SUB, ukeys % SUB] = np.arange(nb, dtype=np.int32)
+        t["sub_header"] = header
+        t["sub_w"] = int(ucnt.max())
+    elif tier == "lo_wide":
+        row_w = _lane_pad(1 + W)
+        lw = np.full(H * row_w, LO_SENTINEL, dtype=np.int32)
+        lw[::row_w][:H] = starts
+        lw[db.hi.astype(np.int64) * row_w + 1 + rank] = db.lo
+        t["lo_wide"] = lw.reshape(H, row_w)
+    return t
 
 
 @dataclasses.dataclass
@@ -175,97 +374,18 @@ class DeviceDB:
                 wide_payload: bool | None = None, sub: bool | None = None,
                 wide_lo: bool | None = None,
                 fused: bool | None = None) -> "DeviceDB":
-        """Build the JAX package's tables for ``db`` (engine.py:150-296)
-        and upload them to ``device``.  Each flag forces its layout on or
-        off; None leaves it to the auto-ladder, whose gates equal the
-        JAX package's."""
+        """Build ``db``'s tables in one probe tier and upload them to
+        ``device``.  With no flags the tier is CARD_TIER, the port's pick.
+        The JAX ``from_db``'s flags (engine.py:150-296) each force their
+        layout on or off and leave the rest to the JAX gates
+        (:func:`flag_tier`), so that the tables equal the JAX package's
+        under the same flags.  Each tier's tables are the JAX package's."""
         device = resolve_device(device)
-        n_steps = max(1, math.ceil(math.log2(db.max_bucket + 1))) \
-            if len(db) else 1
-        n = len(db)
-        pair = np.stack([db.bucket_start[:-1], db.bucket_start[1:]],
-                        axis=1).astype(np.int32)
-        lo = np.concatenate([db.lo, np.array([-1], np.int32)])
-        payload = np.zeros((n + 1, 4), dtype=np.int32)
-        payload[:n, 0] = db.fi
-        payload[:n, 1] = db.oi
-        payload[:n, 2] = db.avg_off
-        payload[:n, 3] = db.wt.view(np.int32)
-        payload[n] = (-1, -1, 0, 0)
-        planes = (db.lo, db.fi, db.oi, db.avg_off, db.wt.view(np.int32))
-        if wide is None:
-            wide = 0 < db.max_bucket <= WIDE_BUCKET_MAX
-        H = len(pair)
-        WIDE = max(1, int(db.max_bucket))
-        starts = db.bucket_start[:-1]
-        # each key's slot within its hi bucket
-        rank = np.arange(n, dtype=np.int64) \
-            - db.bucket_start[db.hi].astype(np.int64)
-        if wide_payload is None:
-            wide_payload = (wide and
-                            H * (1 + 5 * WIDE) * 4 <= WIDE_PAYLOAD_MAX_BYTES)
-        t = {}
-        if wide and wide_payload and n:
-            t["payload_wide"] = _payload_rows(starts, db.hi, rank, WIDE,
-                                              planes)
-            t["wide_w"] = WIDE
-
-        fi_max = int(db.fi.max()) if n else 0
-        if fused is None:
-            fused = (fi_max < (1 << (31 - FUSED_LO_BITS))
-                     and 0 < db.max_bucket <= FUSED_BUCKET_MAX
-                     and H * _lane_pad(1 + 2 * WIDE) * 4 <= FUSED_MAX_BYTES)
-        if not t and n and fused:
-            row_w = _lane_pad(1 + 2 * WIDE)
-            fw = np.full(H * row_w, FUSED_SENTINEL, dtype=np.int32)
-            fw[::row_w][:H] = starts
-            rows_f = db.hi.astype(np.int64) * row_w
-            fw[rows_f + 1 + rank] = \
-                (db.fi.astype(np.int64) << FUSED_LO_BITS) | db.lo
-            fw[rows_f + 1 + WIDE + rank] = db.wt.view(np.int32)
-            t["fused_wide"] = fw.reshape(H, row_w)
-            t["fused_w"] = WIDE
-
-        if sub is None:
-            sub = not wide and n > 0
-        if sub and not wide and n and "fused_wide" not in t:
-            skey = db.hi.astype(np.int64) * SUB + (db.lo >> SUB_SHIFT)
-            ukeys, ustart, ugroup, ucnt = np.unique(
-                skey, return_index=True, return_inverse=True,
-                return_counts=True)
-            max_sub = int(ucnt.max())
-            nb = len(ukeys)
-            if (max_sub <= SUB_BUCKET_MAX
-                    and (nb + 1) * (1 + 5 * max_sub) * 4 <= SUB_MAX_BYTES):
-                # block nb is the miss row: start n, an empty lo plane
-                t["sub_blocks"] = _payload_rows(
-                    np.append(ustart, n), ugroup,
-                    np.arange(n, dtype=np.int64) - ustart[ugroup], max_sub,
-                    planes)
-                header = np.full((H, SUB), nb, dtype=np.int32)
-                header[ukeys // SUB, ukeys % SUB] = \
-                    np.arange(nb, dtype=np.int32)
-                t["sub_header"] = header
-                t["sub_w"] = max_sub
-
-        if wide_lo is None:
-            wide_lo = wide or H * _lane_pad(1 + WIDE) * 4 <= LO_WIDE_MAX_BYTES
-        if not t and n and wide_lo:
-            row_w = _lane_pad(1 + WIDE)
-            lw = np.full(H * row_w, LO_SENTINEL, dtype=np.int32)
-            lw[::row_w][:H] = starts
-            lw[db.hi.astype(np.int64) * row_w + 1 + rank] = db.lo
-            t["lo_wide"] = lw.reshape(H, row_w)
-
-        # slim uploads (engine.py:270-281): the arrays a layout makes dead
-        if t:
-            pair = pair[:0].copy()
-            lo = lo[:1].copy()
-        if "payload_wide" in t or "sub_blocks" in t:
-            payload = payload[-1:].copy()
-        t.update(bucket_pair=pair, lo=lo, payload=payload)
-        return cls.from_numpy(dict(t, n=n, n_steps=n_steps), device,
-                              copy=False)
+        flags = dict(wide=wide, wide_payload=wide_payload, sub=sub,
+                     wide_lo=wide_lo, fused=fused)
+        tier = (flag_tier(tier_stats(db), **flags)
+                if any(v is not None for v in flags.values()) else CARD_TIER)
+        return cls.from_numpy(tier_tables(db, tier), device, copy=False)
 
     @classmethod
     def from_numpy(cls, fields: dict, device,
@@ -349,8 +469,7 @@ def _masked_pick(plane: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
 
 def _payload_probe(ddb: DeviceDB, found, idx):
     """The [N+1, 4] payload row of each window's matched DB row (the miss
-    row N where none): the tail of the lo_wide and binary-search
-    tiers."""
+    row N where none): the tail of the lo_wide tier."""
     idx = torch.where(found, idx, ddb.n)
     row = ddb.payload[idx.long()]
     return (found, row[..., 0], row[..., 1], row[..., 2],
@@ -394,6 +513,11 @@ def probe_windows(ddb: DeviceDB, hi, lo, valid):
                            valid.reshape(-1).contiguous(), table, wd, n)
         return tuple(x.reshape(hi.shape) for x in sel)
 
+    if ddb.fused_wide is None and ddb.lo_wide is None:
+        return probe_search(hi.contiguous(), lo.contiguous(),
+                            valid.contiguous(), ddb.bucket_pair, ddb.lo,
+                            ddb.payload, n, ddb.n_steps)
+
     hi_c = torch.where(valid, hi, 0)
     lo_c = torch.where(valid, lo, -2)
     if ddb.fused_wide is not None:
@@ -415,29 +539,12 @@ def probe_windows(ddb: DeviceDB, hi, lo, valid):
         oi = torch.where(found, pay[..., 1], -1)
         return found, fi, oi, pay[..., 2], wt, idx
 
-    if ddb.lo_wide is not None:
-        # the bucket's start and its whole sentinel-padded lo plane in one
-        # row: equality, then the first (only) matching slot
-        row = ddb.lo_wide[hi_c.long()]             # [..., 1 + W (+ pad)]
-        match = row[..., 1:] == lo_c[..., None]
-        found = valid & match.any(dim=-1)
-        return _payload_probe(ddb, found, row[..., 0] + _first_match(match))
-
-    # branchless lower bound (engine.py:604-625): after n_steps halvings
-    # left == right == the insertion point of lo_c in lo[start:end); int32
-    # throughout, and the clamp to n keeps every read inside the table
-    pair = ddb.bucket_pair[hi_c.long()]
-    left, end = pair[..., 0], pair[..., 1]
-    right = end
-    for _ in range(ddb.n_steps):
-        cont = left < right
-        mid = (left + right) >> 1
-        go_right = cont & (ddb.lo[mid.clamp(max=n).long()] < lo_c)
-        left, right = (torch.where(go_right, mid + 1, left),
-                       torch.where(cont & ~go_right, mid, right))
-    idx = left.clamp(max=n)
-    found = valid & (left < end) & (ddb.lo[idx.long()] == lo_c)
-    return _payload_probe(ddb, found, idx)
+    # lo_wide: the bucket's start and its whole sentinel-padded lo plane
+    # in one row: equality, then the first (only) matching slot
+    row = ddb.lo_wide[hi_c.long()]                 # [..., 1 + W (+ pad)]
+    match = row[..., 1:] == lo_c[..., None]
+    found = valid & match.any(dim=-1)
+    return _payload_probe(ddb, found, row[..., 0] + _first_match(match))
 
 
 def stable_true_first(mask: torch.Tensor) -> torch.Tensor:

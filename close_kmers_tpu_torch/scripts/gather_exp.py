@@ -37,7 +37,7 @@ import numpy as np
 import torch
 
 from .. import params
-from ..core.engine import DeviceDB, probe_windows
+from ..core.engine import JAX_TIER_FLAGS, DeviceDB, probe_windows
 from ..db.signature_db import SignatureDB
 from ..ops import gather_exp as gx
 from ..utils.device import gpu_name_and_power_limit, resolve_device
@@ -125,10 +125,11 @@ def deep_db(n_keys: int = EXP_DEEP_KEYS, hi_span: int = EXP_DEEP_SPAN,
 
 def deepcmp(db: SignatureDB, device, gen: torch.Generator,
             hi_span: int = EXP_DEEP_SPAN) -> dict:
-    """Probe N_IDX random in-span (hi, lo) windows through the
-    auto-picked tier (``deep_sub``) and the binary search (``deep_bin``,
-    ``from_db(sub=False)``); raises unless all six output planes are
-    equal.  Returns seconds per call by name."""
+    """Probe N_IDX random in-span (hi, lo) windows through the sub_blocks
+    tier (``deep_sub``, the JAX package's auto pick for this DB, forced by
+    its flags) and the binary search (``deep_bin``, ``from_db(sub=False)``);
+    raises unless all six output planes are equal.  Returns seconds per
+    call by name."""
     print(f"deep DB: {len(db):,} keys, max bucket {db.max_bucket}",
           flush=True)
     q_hi = torch.randint(0, hi_span, (1, N_IDX), generator=gen,
@@ -137,7 +138,8 @@ def deepcmp(db: SignatureDB, device, gen: torch.Generator,
                          device=device, dtype=torch.int32)
     valid = torch.ones((1, N_IDX), dtype=torch.bool, device=device)
     outs, per = {}, {}
-    for name, kw in (("deep_sub", {}), ("deep_bin", dict(sub=False))):
+    for name, kw in (("deep_sub", JAX_TIER_FLAGS["sub_blocks"]),
+                     ("deep_bin", dict(sub=False))):
         d = DeviceDB.from_db(db, device, **kw)
         blocks = None if d.sub_blocks is None else tuple(d.sub_blocks.shape)
         print(f"  [{name}: tier {d.tier}, sub_blocks={blocks} "

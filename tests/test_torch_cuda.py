@@ -15,8 +15,9 @@ import torch
 from close_kmers_tpu_torch.core.api import KmerEngine
 from close_kmers_tpu_torch.core.device_family import DeviceFamilyScorer
 from close_kmers_tpu_torch.core.device_score import DeviceScorer
-from close_kmers_tpu_torch.core.engine import (DeviceDB, FastAnnotator,
-                                               encode_windows, probe_windows)
+from close_kmers_tpu_torch.core.engine import (JAX_TIER_FLAGS, DeviceDB,
+                                               FastAnnotator, encode_windows,
+                                               probe_windows)
 from close_kmers_tpu_torch.core import genome as G
 from close_kmers_tpu_torch.core import matrix as M
 from close_kmers_tpu_torch import params as P
@@ -29,6 +30,7 @@ from close_kmers_tpu_torch.ops.best_call import (CAPC, best_call,
 from close_kmers_tpu_torch.ops.family_group import (SMEM_MAX_COLS,
                                                     family_group,
                                                     family_group_plain, route)
+from close_kmers_tpu_torch.ops.probe_search import probe_search
 from close_kmers_tpu_torch.ops.probe_select import (famwide_select,
                                                     famwide_select_plain,
                                                     probe_select,
@@ -308,7 +310,8 @@ def _db(rng, n_funcs=20, prot_len=120):
 
 def test_paths_on_card_match_cpu(cuda):
     """probe_compact and DeviceScorer on the card equal the same calls
-    on the CPU, and go through both kernels."""
+    on the CPU, and go through both kernels (probe_search: the binary
+    search, the auto-ladder's tier)."""
     rng = np.random.default_rng(1)
     db, prots = _db(rng)
     offsets = np.full((64, 160), 20, np.uint8)
@@ -316,7 +319,7 @@ def test_paths_on_card_match_cpu(cuda):
     for b in range(64):
         offsets[b, :lengths[b]] = np.resize(prots[b % len(prots)],
                                             lengths[b])
-    before = (probe_select.launches, scan_score.launches)
+    before = (probe_search.launches, scan_score.launches)
     fa_g, fa_c = FastAnnotator(db, cuda), FastAnnotator(db, "cpu")
     for rows_only in (False, True):
         hg = fa_g.probe_compact(offsets, lengths, rows_only=rows_only)
@@ -335,7 +338,7 @@ def test_paths_on_card_match_cpu(cuda):
             oc = oc.numpy()
             assert oc[:64].sum() > 0
             assert np.array_equal(og, oc)
-    assert probe_select.launches > before[0]
+    assert probe_search.launches > before[0]
     assert scan_score.launches > before[1]
 
 
@@ -700,7 +703,8 @@ TIER_FLAGS = [dict(wide=False, sub=False, wide_lo=False, fused=False),
 
 def test_tiers_on_card_match_cpu(cuda):
     """Each probe tier on the card equals the same tier on the CPU and the
-    payload-wide probe; the sub tier goes through probe_select."""
+    auto-ladder's probe; the payload-wide and sub tiers go through
+    probe_select, the binary search through probe_search."""
     rng = np.random.default_rng(3)
     db, prots = _db(rng)
     offsets = np.full((64, 160), 20, np.uint8)
@@ -713,11 +717,13 @@ def test_tiers_on_card_match_cpu(cuda):
     assert int(base[0].sum()) > 1000
     for kw in TIER_FLAGS:
         dg = DeviceDB.from_db(db, cuda, **kw)
-        before = probe_select.launches
+        before = (probe_select.launches, probe_search.launches)
         got = probe_windows(dg, *encode_windows(o.to(cuda), ln.to(cuda)))
         torch.cuda.synchronize()
-        assert (probe_select.launches > before) == (
+        assert (probe_select.launches > before[0]) == (
             dg.tier in ("payload_wide", "sub_blocks")), dg.tier
+        assert (probe_search.launches > before[1]) == (
+            dg.tier == "binary_search"), dg.tier
         for w_, g in zip(base, got):
             assert torch.equal(bits(w_), bits(g)), dg.tier
 
@@ -741,21 +747,21 @@ def test_genome_on_card_matches_cpu(cuda):
                                         size=int(rng.integers(0, 900)))))
     dna = "".join(parts)
     ga_g, ga_c = G.GenomeAnnotator(db, cuda), G.GenomeAnnotator(db, "cpu")
-    before = (probe_select.launches, scan_score.launches)
+    before = (probe_search.launches, scan_score.launches)
     for params in (EngineParams(), EngineParams(min_hits=2, max_gap=50,
                                                 order_constraint=1)):
         out_g, it_g, T = ga_g.dispatch(dna, params)
         out_c, it_c, _ = ga_c.dispatch(dna, params)
         assert np.array_equal(out_g.cpu().numpy(), out_c.numpy())
         assert it_g == it_c and out_c[:6 * T].sum() > 5
-    assert probe_select.launches > before[0]
+    assert probe_search.launches > before[0]
     assert scan_score.launches >= before[1] + 2 * (it_c + 1)
 
 
 def test_matrix_on_card_matches_cpu(cuda):
     """DeviceMatrix on the card gives the CPU port's pairs, chunked with a
     padded tail and through the x4 cap retry, and one chunk's packed
-    buffer word for word, through probe_select."""
+    buffer word for word, through probe_search."""
     rng = np.random.default_rng(4)
     db, prots = _db(rng)
     n, P = len(db), 300
@@ -772,14 +778,14 @@ def test_matrix_on_card_matches_cpu(cuda):
     dm_g = M.DeviceMatrix(db, max_deg=3, device=cuda)
     dm_c = M.DeviceMatrix(db, max_deg=3, device="cpu")
     dm_g.CHUNK = dm_c.CHUNK = 128
-    before = probe_select.launches
+    before = probe_search.launches
     csr_g = dm_g.stage_csr(peg_offs, peg_vals)
     csr_c = dm_c.stage_csr(peg_offs, peg_vals)
     for cap in (4, 32768):
         got = dm_g.count_pairs(offsets, lengths, *csr_g, rank, pair_cap=cap)
         want = dm_c.count_pairs(offsets, lengths, *csr_c, rank, pair_cap=cap)
         assert got == want and len(want) > 100
-    assert probe_select.launches > before
+    assert probe_search.launches > before
     args = []
     for dm in (dm_g, dm_c):
         dev = dm.device
@@ -899,7 +905,7 @@ def test_best_call_kernel_views_and_edges(cuda, M, col0, pad):
 def test_best_calls_batch_on_card_matches_cpu(cuda):
     """DeviceScorer's fused best-call path on the card equals the CPU
     port's: the [B, 9] pack (a 40-call overflow row included) and every
-    BestCall of best_calls_batch, through probe_select, scan_score and
+    BestCall of best_calls_batch, through probe_search, scan_score and
     best_call."""
     rng = np.random.default_rng(6)
     db, prots = _db(rng)
@@ -956,7 +962,7 @@ def test_tpu_engine_on_card_matches_cpu(cuda):
         f"PGF_{f % 7:08d}", f"PLF_1_{f:08d}", 1, f"fn{f % 20}", f, 10, 3)
         for f in range(30)]
     g, c = TpuEngine(db, cuda), TpuEngine(db, "cpu")
-    before = probe_select.launches
+    before = probe_search.launches
     for params in (EngineParams(), EngineParams(min_hits=2, max_gap=40)):
         want, got = (_plain_results(e.process_batch(items, params,
                                                     want_hits=True))
@@ -968,7 +974,7 @@ def test_tpu_engine_on_card_matches_cpu(cuda):
     got = F.annotate_best_match(g, items, mapping, db.function_of,
                                 genus_filter=False)
     assert got == want and sum(1 for _, m in want if m.gfam_id) > 10
-    assert probe_select.launches > before
+    assert probe_search.launches > before
 
 
 def _deep_db(rng, n=8_000):
@@ -1050,3 +1056,123 @@ def test_sharded_step_on_card_matches_single_card(cuda, shape, deep):
     after = [k.launches for k in kernels]
     assert all(a > b for a, b in zip(after, before)), \
         dict(zip(names, zip(before, after)))
+
+
+# bucket depths of the probe_search DBs: empty, one key, both sides of
+# each power of two up to 2^11, and ~2,500 keys (n_steps 12)
+SEARCH_DEPTHS = (0, 1, *(d for k in range(1, 12)
+                         for d in (2 ** k - 1, 2 ** k, 2 ** k + 1)), 2500)
+
+
+def search_db(seed: int):
+    """A DB of one hi bucket per SEARCH_DEPTHS depth (random lo codes,
+    the buckets at random hi), and windows against it: every key (first
+    and last slots included), random lo codes in each bucket (mostly
+    misses), lo codes below and above each bucket's keys, windows into
+    empty buckets, and invalid windows of any hi and lo.  Returns (db,
+    hi, lo, valid) with flat int32 / bool numpy windows, shuffled."""
+    rng = np.random.default_rng(seed)
+    his = rng.choice(P.HI_CARD, size=len(SEARCH_DEPTHS), replace=False)
+    keys = np.concatenate([
+        h * P.LO_CARD + rng.choice(np.arange(1, P.LO_CARD - 1), size=d,
+                                   replace=False)
+        for h, d in zip(his, SEARCH_DEPTHS)]).astype(np.int64)
+    n = len(keys)
+    db = SignatureDB(keys, rng.integers(0, 99, size=n).astype(np.int32),
+                     rng.integers(-1, 8, size=n).astype(np.int32),
+                     rng.integers(0, 300, size=n).astype(np.int32),
+                     rng.uniform(0.1, 3.0, size=n).astype(np.float32),
+                     functions=[f"fn{i}" for i in range(99)])
+    codes = [keys]
+    for h in his:
+        codes += [h * P.LO_CARD + rng.integers(0, P.LO_CARD, size=40),
+                  np.array([h * P.LO_CARD, h * P.LO_CARD + P.LO_CARD - 1])]
+    codes.append(rng.integers(0, P.HI_CARD * P.LO_CARD, size=3000))
+    codes = np.concatenate(codes)
+    hi = (codes // P.LO_CARD).astype(np.int32)
+    lo = (codes % P.LO_CARD).astype(np.int32)
+    valid = np.ones(len(codes), dtype=bool)
+    n_bad = 2000
+    edge_hi = [-2 ** 31, -5, -1, P.HI_CARD, P.HI_CARD + 4, 2 ** 31 - 1]
+    hi = np.concatenate([hi, edge_hi, rng.integers(
+        0, P.HI_CARD, size=n_bad - len(edge_hi))]).astype(np.int32)
+    lo = np.concatenate([lo, rng.integers(-5, P.LO_CARD + 5, size=n_bad)
+                         .astype(np.int32)])
+    valid = np.concatenate([valid, np.zeros(n_bad, dtype=bool)])
+    order = rng.permutation(len(hi))
+    return db, hi[order], lo[order], valid[order]
+
+
+def _search_args(ddb, dev, aligned: bool):
+    """probe_search's table arguments from ``ddb`` on ``dev``; unaligned:
+    bucket_pair and payload as contiguous views 4 B into a buffer, so
+    that the kernel takes its 4-B loads."""
+    tabs = [ddb.bucket_pair, ddb.lo, ddb.payload]
+    if not aligned:
+        tabs = [torch.cat([torch.zeros(1, dtype=torch.int32),
+                           t.reshape(-1)])[1:].view(t.shape) for t in tabs]
+    return [t.to(dev) for t in tabs] + [ddb.n, ddb.n_steps]
+
+
+def _shifted(t, dev, aligned: bool):
+    """``t`` on ``dev``, as a contiguous view one element into a buffer
+    when not ``aligned``."""
+    if aligned:
+        return t.to(dev)
+    return torch.cat([t[:1], t]).to(dev)[1:]
+
+
+@pytest.mark.parametrize("B", [1, 20_479])
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_probe_search_kernel_matches_plain(cuda, B, aligned, seed):
+    """ck_probe_search against probe_search_plain, bit for bit, on the
+    search_db windows (B of them, the windows repeated past their
+    count), through both load widths, with its launch counted."""
+    from close_kmers_tpu_torch.ops.probe_search import (probe_search,
+                                                        probe_search_plain)
+    db, hi, lo, valid = search_db(seed)
+    ddb = DeviceDB.from_db(db, "cpu", **JAX_TIER_FLAGS["binary_search"])
+    assert ddb.n_steps == 12
+    idx = np.arange(B) % len(hi)
+    wins = [torch.from_numpy(np.ascontiguousarray(a[idx]))
+            for a in (hi, lo, valid)]
+    want = probe_search_plain(*wins, ddb.bucket_pair, ddb.lo, ddb.payload,
+                              ddb.n, ddb.n_steps)
+    before = probe_search.launches
+    got = probe_search(*(_shifted(w, cuda, aligned) for w in wins),
+                       *_search_args(ddb, cuda, aligned))
+    torch.cuda.synchronize()
+    assert probe_search.launches == before + 1
+    assert got[0].shape == (B,)
+    for w_, g in zip(want, got):
+        assert torch.equal(bits(w_), bits(g))
+    if B > 1:
+        assert 1000 < int(got[0].sum()) < B
+
+
+def test_probe_search_kernel_carried_over_steps(cuda):
+    """A table carried over with fewer n_steps than its buckets need: the
+    kernel's search ends where the plain version's does, and both give
+    the same planes; probe_windows launches it for the binary tier."""
+    from close_kmers_tpu_torch.ops.probe_search import (probe_search,
+                                                        probe_search_plain)
+    db, hi, lo, valid = search_db(2)
+    d = DeviceDB.from_db(db, "cpu", **JAX_TIER_FLAGS["binary_search"])
+    fields = {f: None if getattr(d, f) is None else getattr(d, f).numpy()
+              for f in DeviceDB.ARRAYS}
+    ok = valid & (hi >= 0) & (hi < P.HI_CARD)
+    wins = [torch.from_numpy(a[ok]) for a in (hi, lo, valid)]
+    for n_steps in (0, 3, 7, 12, 40):
+        ddb = DeviceDB.from_numpy(dict(fields, n=len(db), n_steps=n_steps),
+                                  "cpu")
+        dg = DeviceDB.from_numpy(dict(fields, n=len(db), n_steps=n_steps),
+                                 cuda)
+        want = probe_search_plain(*wins, ddb.bucket_pair, ddb.lo,
+                                  ddb.payload, ddb.n, n_steps)
+        before = probe_search.launches
+        got = probe_windows(dg, *(w.to(cuda) for w in wins))
+        torch.cuda.synchronize()
+        assert probe_search.launches == before + 1
+        for w_, g in zip(want, got):
+            assert torch.equal(bits(w_), bits(g)), n_steps

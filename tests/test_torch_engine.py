@@ -50,9 +50,11 @@ def test_encode_windows_matches_jax(L):
 
 
 def test_payload_wide_table_matches_jax(corpus):
+    """The JAX auto-ladder's payload-wide table, and the port's under the
+    flags that force that tier."""
     db, _ = corpus
     want = E.DeviceDB.from_db(as_jax_db(db))
-    got = T.DeviceDB.from_db(db, "cpu")
+    got = T.DeviceDB.from_db(db, "cpu", **T.JAX_TIER_FLAGS["payload_wide"])
     assert np.array_equal(np.asarray(want.payload_wide),
                           got.payload_wide.numpy())
     assert (got.wide_w, got.n, got.n_steps) == \
@@ -152,14 +154,14 @@ def _probe_both(jdb, tdb, offsets, lengths):
     (dict(depth=300, lo_span=512), "binary_search"),
 ])
 def test_unported_tiers_raise(db_args, tier):
-    """One bucket past each gate: the auto-ladder picks the tier the JAX
-    package picks, and the port builds and probes it as JAX does instead
-    of raising, hits included (windows spelled from the deep bucket's
-    keys)."""
+    """One bucket past each JAX gate: the JAX auto-ladder picks ``tier``,
+    and the port, forced to it by the flags that build it, builds and
+    probes it as JAX does instead of raising, hits included (windows
+    spelled from the deep bucket's keys)."""
     db = _bucket_db(**db_args)
     assert T.jax_tier(db) == tier
     jdb = E.DeviceDB.from_db(as_jax_db(db))
-    tdb = T.DeviceDB.from_db(db, "cpu")
+    tdb = T.DeviceDB.from_db(db, "cpu", **T.JAX_TIER_FLAGS[tier])
     layouts = [f for f in ("fused_wide", "payload_wide", "sub_blocks",
                            "lo_wide") if getattr(jdb, f) is not None]
     assert tdb.tier == tier and layouts == ([] if tier == "binary_search"

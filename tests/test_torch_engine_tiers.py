@@ -146,14 +146,15 @@ def test_from_numpy_carries_each_tier(shallow, name):
 
 
 def test_deep_db_sub_and_binary_search_match_jax(deep):
-    """The seed-11 deep DB: the auto-ladder's sub_blocks tier and the
-    binary search (sub=False) build JAX's tables and probe as JAX does,
-    and equal each other."""
+    """The seed-11 deep DB: the JAX auto-ladder's sub_blocks tier (forced
+    by its flags) and the binary search (sub=False) build JAX's tables and
+    probe as JAX does, and equal each other."""
     db, offsets, lengths = deep
     assert db.max_bucket > T.WIDE_BUCKET_MAX
+    assert T.jax_tier(db) == "sub_blocks"
     outs = []
-    for kw, tier in ((dict(), "sub_blocks"), (dict(sub=False),
-                                              "binary_search")):
+    for kw, tier in ((T.JAX_TIER_FLAGS["sub_blocks"], "sub_blocks"),
+                     (dict(sub=False), "binary_search")):
         jd = E.DeviceDB.from_db(as_jax_db(db), **kw)
         td = T.DeviceDB.from_db(db, "cpu", **kw)
         assert td.tier == tier
@@ -168,7 +169,7 @@ def test_deep_db_sub_and_binary_search_match_jax(deep):
 
 def test_sub_tier_goes_through_probe_select(deep, monkeypatch):
     db, offsets, lengths = deep
-    td = T.DeviceDB.from_db(db, "cpu")
+    td = T.DeviceDB.from_db(db, "cpu", **T.JAX_TIER_FLAGS["sub_blocks"])
     before = probe_select.launches
     called = []
 
@@ -203,22 +204,26 @@ def _deep17():
     ("empty", "binary_search"),
 ])
 def test_auto_ladder_picks_jax_tier(shallow, deep, which, tier):
-    """With no flags both packages pick the same tier: the seed-42
-    corpus, the seed-11 deep DB, the seed-17 DB of
-    test_deep_bucket_db_picks_sub_not_fused, and the empty DB."""
+    """With no flags the JAX package picks ``tier`` (jax_tier, the oracle
+    of its choice) for the seed-42 corpus, the seed-11 deep DB, the seed-17
+    DB of test_deep_bucket_db_picks_sub_not_fused and the empty DB; the
+    port builds the same tables under the flags that force that tier, and
+    its own auto pick is card_tier's (test_torch_tier_gates.py)."""
     db = {"shallow": lambda: shallow[0], "deep11": lambda: deep[0],
           "deep17": _deep17,
           "empty": lambda: SignatureDB.from_entries([])}[which]()
     jd = E.DeviceDB.from_db(as_jax_db(db))
-    td = T.DeviceDB.from_db(db, "cpu")
+    td = T.DeviceDB.from_db(db, "cpu", **T.JAX_TIER_FLAGS[tier])
     assert T.jax_tier(db) == td.tier == tier
     assert_tables_equal(jd, td)
+    assert T.DeviceDB.from_db(db, "cpu").tier == T.card_tier(db)
 
 
 @pytest.mark.parametrize("rows_only", [False, True])
 def test_probe_compact_on_sub_tier(deep, rows_only):
     db, offsets, lengths = deep
     jfa, tfa = E.FastAnnotator(as_jax_db(db)), T.FastAnnotator(db, "cpu")
+    tfa.ddb = T.DeviceDB.from_db(db, "cpu", **T.JAX_TIER_FLAGS["sub_blocks"])
     assert tfa.ddb.tier == "sub_blocks" and jfa.ddb.sub_blocks is not None
     want = jfa.probe_compact(offsets, lengths, rows_only=rows_only)
     got = tfa.probe_compact(offsets, lengths, rows_only=rows_only)
@@ -230,8 +235,10 @@ def test_probe_compact_on_sub_tier(deep, rows_only):
 @pytest.mark.parametrize("slim", [0, 2, 3])
 def test_device_scorer_on_sub_tier(deep, slim):
     db, offsets, lengths = deep
-    js, ts = JaxScorer(as_jax_db(db)), DeviceScorer(db, "cpu")
-    assert ts.ddb.tier == "sub_blocks"
+    js = JaxScorer(as_jax_db(db))
+    ts = DeviceScorer(db, "cpu", T.DeviceDB.from_db(
+        db, "cpu", **T.JAX_TIER_FLAGS["sub_blocks"]))
+    assert ts.ddb.tier == "sub_blocks" and js.ddb.sub_blocks is not None
     want, wcap = js.score_batch_packed(offsets, lengths, EngineParams(),
                                        calls_per_seq_cap=4, slim=slim)
     got, gcap = ts.score_batch_packed(offsets, lengths, EngineParams(),

@@ -146,9 +146,11 @@ def test_gather_bodies_match_jax(width):
 
 
 def test_deep_db_probes_equal_on_both_tiers():
-    """deepcmp's DB at a small size auto-picks sub_blocks, and its probes
-    equal the binary search's (the check deepcmp makes on the card)."""
-    from close_kmers_tpu_torch.core.engine import DeviceDB, probe_windows
+    """deepcmp's DB at a small size, on the sub_blocks tier the JAX gates
+    pick for it (forced by their flags, as deepcmp does), probes as the
+    binary search does (the check deepcmp makes on the card)."""
+    from close_kmers_tpu_torch.core.engine import (JAX_TIER_FLAGS, DeviceDB,
+                                                   jax_tier, probe_windows)
     db = TG.deep_db(n_keys=30_000, hi_span=150, seed=4)
     rng = np.random.default_rng(4)
     hi = t(rng.integers(0, 150, size=(1, 20000)).astype(np.int32))
@@ -157,7 +159,8 @@ def test_deep_db_probes_equal_on_both_tiers():
     lo[0, :5000] = t(db.lo[:5000])
     valid = torch.rand(1, 20000, generator=torch.Generator().manual_seed(4)
                        ) < 0.95
-    d_sub = DeviceDB.from_db(db, "cpu")
+    assert jax_tier(db) == "sub_blocks"
+    d_sub = DeviceDB.from_db(db, "cpu", **JAX_TIER_FLAGS["sub_blocks"])
     d_bin = DeviceDB.from_db(db, "cpu", sub=False)
     assert (d_sub.tier, d_bin.tier) == ("sub_blocks", "binary_search")
     a = probe_windows(d_sub, hi, lo, valid)
@@ -199,8 +202,9 @@ def test_gather_exp_runs_without_jax():
         "assert gx.dma_gather(t, torch.tensor([3, 0], dtype=torch.int32))"
         ".tolist() == [[9, 10, 11], [0, 1, 2]]\n"
         "db = TG.deep_db(n_keys=5000, hi_span=20, seed=1)\n"
-        "from close_kmers_tpu_torch.core.engine import DeviceDB\n"
-        "assert DeviceDB.from_db(db, 'cpu').tier == 'sub_blocks'\n"
+        "from close_kmers_tpu_torch.core import engine as T\n"
+        "assert T.jax_tier(db) == 'sub_blocks'\n"
+        "assert T.DeviceDB.from_db(db, 'cpu').tier == T.card_tier(db)\n"
         "assert torch.cuda.is_available() or TG.main(['xla8']) == 1\n"
         "assert not any(m == 'jax' or m.startswith('jax.') "
         "for m, v in sys.modules.items() if v is not None)\n")
