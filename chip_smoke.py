@@ -21,7 +21,12 @@ card, and exits 1 without one.
    cell's batch, on the genome's tile windows and on one /matrix chunk,
    by launch warm and L2 flushed, with its bound (each window's bytes,
    its bucket pair, the distinct 32-B lo sectors its search reads and a
-   hit's payload row); row_gather, famwide_select
+   hit's payload row), in turns with its first design (one thread a
+   window, n_steps halvings) and any ``--compare`` tree's kernel, and on
+   the query cell with its decomposition (ck_probe_search_exp: pair +
+   payload alone, the first design at 128/256/512 threads a block and
+   with 2-4 windows a thread, a quarter-warp k-ary design, and the first
+   design on the windows sorted by hi); row_gather, famwide_select
    and family_group on the same batch against the family universe of
    phase 4 (D = 3), family_group also on the first chunk of phase 4's
    /fq_lookup ORF batch and on both sides of its route limit (W*D =
@@ -36,7 +41,9 @@ card, and exits 1 without one.
    the wrapper's host cost split into its parts; with ``--compare
    LABEL=DIR`` (e.g. the parent commit unpacked by ``git archive``) that
    tree's best_call kernel and wrapper are timed in turns with this
-   one's; and
+   one's (and its probe_search kernel wherever probe_search is timed,
+   here and in the scale phase); dmaflush beside index_copy_ of its
+   blocks; and
    the four probe-gather kernels at scripts/gather_exp.py's shapes
    (dma_gather: 2,490,000 ids from a [3.2M, 128] table; vgather:
    2,488,320 ids on a 448 x 128 tile; hbmstream: [3,198,976, 128] in
@@ -174,7 +181,13 @@ card, and exits 1 without one.
      DeviceScorer.best_batch_packed on the port's pick (from_db with no
      flags) and on the JAX gates' pick (its flags), interleaved, as
      proteins/s, the packs equal and a 4,096-protein sample's best calls
-     equal to native best-call over the searchsorted reference.
+     equal to native best-call over the searchsorted reference; on the
+     skewed DB probe_search's decomposition as on the query cell.  Then
+     a synthetic binary table of 3,200,000 buckets x 341 keys
+     (1,091,200,000 keys, 22 GB, made on the card): 1,245,184 windows
+     into buckets that start past 2^30, where the kernel and its plain
+     version must equal the analytic idx and rows (a ``--compare`` tree's
+     wrong windows are counted: a midpoint that wraps misses there).
      ``--scale-only uniform,skewed`` runs phase 1 and this phase alone
      (``deep`` adds the deep DBs' tier sweeps before it).
    ``--tier-e2e N`` runs, alone, the query DB's /query (device pack and
@@ -945,12 +958,16 @@ def phase_gather_kernels(device):
     dst = perm.to(torch.int32).reshape(-1, GX.FLUSH_PER_PROG)
     buf = randint(100, (GX.FLUSH_PER_PROG * GX.FLUSH_RPD, 128))
     rpd = GX.FLUSH_RPD
+    copy = GX.flush_by_index_copy(dst, buf, rpd)
+    check(torch.equal(copy(), gx.dmaflush_plain(dst, buf, rpd)),
+          "index_copy_ of the blocks differs from dmaflush's plain version")
     hold("dmaflush", "scripts/gather_exp.py:216",
          f"{GX.FLUSH_DMAS} copies of {rpd} x 128 int32",
          lambda: gx.dmaflush(dst, buf, rpd),
          lambda: gx._launch_dmaflush(dst, buf, rpd),
          lambda: gx.dmaflush_plain(dst, buf, rpd), 10,
-         bound(nbytes(dst, buf) + GX.FLUSH_DMAS * rpd * 128 * 4))
+         bound(nbytes(dst, buf) + GX.FLUSH_DMAS * rpd * 128 * 4), copy,
+         "out.index_copy_(0, dst, blocks) (the blocks made beforehand)")
     return out
 
 
@@ -982,8 +999,7 @@ def phase_tiers(T, db, ddb, off_d, len_d):
         built = time.time() - t0
         check(d.tier == label.replace("scale_", ""),
               f"{label} flags built the {d.tier} tier")
-        table = sum(getattr(d, f).numel() * 4 for f in T.DeviceDB.ARRAYS
-                    if getattr(d, f) is not None)
+        table = d.table_bytes()
         base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
         got = T.probe_windows(d, hi, lo, valid)
@@ -1779,38 +1795,38 @@ def host_us(fn, n: int = 200) -> float:
     return best
 
 
-def best_call_tree(root: str, label: str):
-    """best_call as the tree at ``root`` has it: its csrc/best_call.cu
-    built alone by nvcc into the port's .build/, and its ops/best_call.py
-    loaded as a module of its own that launches from that library.  To
-    time another version of the kernel and its wrapper (the parent
-    commit's, unpacked by ``git archive``) beside this tree's, in one
-    process on one card."""
+def kernel_tree(root: str, label: str, name: str):
+    """Kernel ``name`` (best_call or probe_search) as the tree at ``root``
+    has it: its csrc/<name>.cu built alone by nvcc into the port's
+    .build/, and its ops/<name>.py loaded as a module of its own that
+    launches from that library.  To time another version of the kernel
+    and its wrapper (the parent commit's, unpacked by ``git archive``)
+    beside this tree's, in one process on one card."""
     import ctypes
     import importlib.util
     import subprocess
     from close_kmers_tpu_torch.ops import _build
     pkg = os.path.join(os.path.abspath(root), "close_kmers_tpu_torch")
     os.makedirs(_build.BUILD_DIR, exist_ok=True)
-    lib_path = os.path.join(_build.BUILD_DIR, f"best_call_{label}.so")
+    lib_path = os.path.join(_build.BUILD_DIR, f"{name}_{label}.so")
     proc = subprocess.run(
         [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", lib_path,
-         os.path.join(pkg, "csrc", "best_call.cu")],
+         os.path.join(pkg, "csrc", f"{name}.cu")],
         capture_output=True, text=True, timeout=600)
-    check(proc.returncode == 0, f"nvcc failed on {label}'s best_call.cu:\n"
+    check(proc.returncode == 0, f"nvcc failed on {label}'s {name}.cu:\n"
           f"{proc.stdout}{proc.stderr}")
     lib = ctypes.CDLL(lib_path)
     fns = {}
 
-    def kernel(name, argtypes):
-        if name not in fns:
-            fns[name] = getattr(lib, name)
-            fns[name].argtypes, fns[name].restype = argtypes, ctypes.c_int
-        return fns[name]
+    def kernel(entry, argtypes):
+        if entry not in fns:
+            fns[entry] = getattr(lib, entry)
+            fns[entry].argtypes, fns[entry].restype = argtypes, ctypes.c_int
+        return fns[entry]
 
     spec = importlib.util.spec_from_file_location(
-        f"close_kmers_tpu_torch.ops._best_call_{label}",
-        os.path.join(pkg, "ops", "best_call.py"))
+        f"close_kmers_tpu_torch.ops._{name}_{label}",
+        os.path.join(pkg, "ops", f"{name}.py"))
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     mod._build = types.SimpleNamespace(kernel=kernel, check=_build.check)
@@ -1826,7 +1842,7 @@ def best_call_record(BC, emit, fields, deep, flush, compare) -> dict:
     (:func:`cuda_ms_cold_turns`); back to back with the L2 warm
     (:func:`graph_ms`); its bound; the wrapper's host cost and its parts;
     then the sweep.  ``compare`` maps labels to other versions
-    (:func:`best_call_tree`), held to the plain version and timed in the
+    (:func:`kernel_tree`), held to the plain version and timed in the
     same turns."""
     import torch
     args = (emit, fields[2], fields[3], fields[4])
@@ -2675,11 +2691,6 @@ def card_free_bytes() -> int:
     return torch.cuda.mem_get_info()[0]
 
 
-def table_bytes(T, d) -> int:
-    return sum(getattr(d, f).numel() * 4 for f in T.DeviceDB.ARRAYS
-               if getattr(d, f) is not None)
-
-
 def tier_row_w(T, st, tier: str) -> int:
     W = max(1, st.max_bucket)
     return {"fused_wide": T._lane_pad(1 + 2 * W),
@@ -2717,7 +2728,7 @@ def time_tier(T, d, flat, want, label: str) -> dict:
     max_abs_err(want, got)
     del got
     ms = cuda_ms(lambda: T.probe_windows(d, *flat), 10)
-    return dict(ms=ms, bytes=table_bytes(T, d), peak=peak)
+    return dict(ms=ms, bytes=d.table_bytes(), peak=peak)
 
 
 def tier_sweep(T, db, st, flat, want, label: str, keep: dict) -> dict:
@@ -2765,9 +2776,10 @@ def tier_sweep(T, db, st, flat, want, label: str, keep: dict) -> dict:
 
 def search_sectors(ddb, hi, lo, valid) -> int:
     """The distinct 32-B sectors of ``ddb.lo`` each window's lower bound
-    reads (the kernel's reads: a step while left < right, then the final
-    compare where left < end), summed over the windows."""
+    reads (the halving search's reads: a step while left < right, then the
+    final compare where left < end), summed over the windows."""
     import torch
+    from close_kmers_tpu_torch.ops.probe_search import midpoint
     n = ddb.n
     v = valid.reshape(-1)
     hi_c = torch.where(v, hi.reshape(-1), 0).long()
@@ -2779,7 +2791,7 @@ def search_sectors(ddb, hi, lo, valid) -> int:
                      device=hi.device)
     for s in range(ddb.n_steps):
         cont = v & (left < right)
-        mid = (left + right) >> 1
+        mid = midpoint(left, right)
         m = mid.clamp(max=n).long()
         sec[:, s] = torch.where(cont, m >> 3, -1)
         go = cont & (ddb.lo[m] < lo_c)
@@ -2794,28 +2806,133 @@ def search_sectors(ddb, hi, lo, valid) -> int:
     return int(new.sum())
 
 
-def time_search(ddb, flat, flush, label: str):
+# other trees' probe_search modules ({label: module}, :func:`kernel_tree`),
+# timed in turns with this tree's wherever :func:`time_search` runs;
+# --compare sets it
+SEARCH_TREES: dict = {}
+# the bucket sizes up to which ck_probe_search finds a window in its
+# search row alone (12 keys in 16-bit slots, every DB here), in the row
+# and one round of 16-B lo chunks (its pivots leave at most 12 keys: 168),
+# and past that with halvings between them
+ROW_PATHS = (("row", 12), ("row+chunks", 168), ("row+halvings+chunks",
+                                                2 ** 31))
+
+
+def search_variants(args, want, names=None) -> dict:
+    """The decomposition's functions (those in ``names``, else all): each
+    experiment of ``ck_probe_search_exp`` (pair + payload alone, the first
+    design at 128/256/512 threads a block and with 2-4 windows a thread,
+    the quarter-warp k-ary design) and the first design at 256 threads on
+    the windows sorted by hi (the sort not timed), each held to the plain
+    version's planes ``want`` first.  Returns {name: fn}."""
+    import torch
+    from close_kmers_tpu_torch.ops import probe_search as PSr
+    hi, lo, valid, *tabs = args
+    fns = {}
+
+    def hold(name, wins, known, want_):
+        out = PSr.search_outputs(hi.shape, hi.device)
+
+        def fn():
+            PSr.launch_exp(name.replace("sorted_", "first_"), *wins,
+                           *tabs[:3], known, *tabs[3:], out)
+
+        fn()
+        torch.cuda.synchronize()
+        max_abs_err(want_, out)
+        fns[name] = fn
+
+    for name in PSr.EXP_VARIANTS:
+        if names is None or name in names:
+            hold(name, (hi, lo, valid), want[5], want)
+    if names is None or "sorted_t256" in names:
+        order = torch.argsort(hi, stable=True)
+        hold("sorted_t256", [x[order] for x in (hi, lo, valid)],
+             want[5][order], [w[order] for w in want])
+    return fns
+
+
+def row_paths(ddb, hi, valid) -> dict:
+    """{path: windows}: the valid windows by the path of ck_probe_search
+    their bucket's size takes (:data:`ROW_PATHS`)."""
+    import torch
+    ok = valid & (hi >= 0) & (hi < ddb.bucket_pair.shape[0])
+    pair = ddb.bucket_pair[hi[ok].long()]
+    size = (pair[:, 1] - pair[:, 0]).contiguous()
+    limits = torch.tensor([m for _, m in ROW_PATHS[:-1]], dtype=size.dtype,
+                          device=size.device)
+    got = torch.bincount(torch.bucketize(size, limits),
+                         minlength=len(ROW_PATHS)).tolist()
+    return {name: k for (name, _), k in zip(ROW_PATHS, got)}
+
+
+def search_registers(report: str) -> dict:
+    """{kernel<template arguments>: [registers, spill store bytes]} of
+    probe_search.cu's kernels in the ``-Xptxas -v`` ``report``."""
+    import re
+    out, name = {}, None
+    for line in report.splitlines():
+        m = re.search(r"entry function '_Z\w*?(row_search_kernel|"
+                      r"quarter_kernel|search_thread_kernel)I(\w*?)EEv",
+                      line)
+        if m:
+            args = ",".join(a or b for a, b in
+                            re.findall(r"Li(\d+)E|Lb(\d)E", m.group(2) + "E"))
+            name = f"{m.group(1)}<{args}>"
+            continue
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if name and m:
+            out[name] = [None, int(m.group(1))]
+        m = re.search(r"Used (\d+) registers", line)
+        if name and m:
+            out.setdefault(name, [None, 0])[0] = int(m.group(1))
+            name = None
+    return out
+
+
+def time_search(ddb, flat, flush, label: str, decompose: bool = False,
+                hold_trees: bool = True):
     """probe_search on ``ddb``'s binary-search tables against its plain
     version, bit for bit, on the ``flat`` windows: by launch, warm and L2
-    flushed, the plain version, and the bound.  Returns (the kernel's
-    planes, the record's fields)."""
+    flushed, the plain version, and the bound; in turns, L2 flushed
+    (``turns``), this kernel, the first design (one thread a window, 256
+    a block) and each tree of :data:`SEARCH_TREES` (held to the plain
+    version where ``hold_trees``), with ``decompose`` also every
+    experiment of :func:`search_variants`.  Returns (the kernel's planes,
+    the record's fields)."""
     import torch
     from close_kmers_tpu_torch.ops import probe_search as PSr
     hi, lo, valid = flat
     args = (hi, lo, valid, ddb.bucket_pair, ddb.lo, ddb.payload, ddb.n,
             ddb.n_steps)
-    got = PSr.probe_search(*args)
+    rows = getattr(ddb, "search_rows", None)
+    if rows is None:
+        rows = PSr.search_rows(ddb.bucket_pair, ddb.lo, ddb.n)
+    got = PSr.probe_search(*args, rows)
     torch.cuda.synchronize()
-    err = max_abs_err(PSr.probe_search_plain(*args), got)
+    want = PSr.probe_search_plain(*args)
+    err = max_abs_err(want, got)
     n_hit = int(got[0].sum())
     check(n_hit > 0, f"probe_search on {label} found no hits")
     out = PSr.search_outputs(hi.shape, hi.device)
+    fns = {"this": lambda: PSr._launch(*args, out, rows)}
+    for tree, mod in SEARCH_TREES.items():
+        o = mod.search_outputs(hi.shape, hi.device)
+        fns[tree] = (lambda m, o_: lambda: m._launch(*args, o_))(mod, o)
+        fns[tree]()
+        torch.cuda.synchronize()
+        if hold_trees:
+            max_abs_err(want, o)
+    fns.update(search_variants(args, want,
+                               None if decompose else ["first_t256"]))
+    turns = cuda_ms_cold_turns(fns, 20, flush)
     rec = dict(
         max_abs_err=err,
-        ms=cuda_ms_cold(lambda: PSr._launch(*args, out), 20, flush),
-        warm_ms=cuda_ms(lambda: PSr._launch(*args, out), 20),
+        ms=cuda_ms_cold(fns["this"], 20, flush),
+        warm_ms=cuda_ms(fns["this"], 20),
         plain_ms=cuda_ms(lambda: PSr.probe_search_plain(*args), 3),
-        windows=hi.numel(), hits=n_hit, n_steps=ddb.n_steps)
+        windows=hi.numel(), hits=n_hit, n_steps=ddb.n_steps, turns=turns,
+        row_paths=row_paths(ddb, hi, valid))
     # each window's 9 B in and 21 B out, the bucket pair of each valid
     # window, the 32-B lo sectors its search reads, a hit's payload row
     n_valid = int(valid.sum())
@@ -2823,20 +2940,25 @@ def time_search(ddb, flat, flush, label: str):
     rec.update(bound(hi.numel() * (9 + 21) + n_valid * 8
                      + rec["sectors"] * 32 + n_hit * 16))
     log(f"probe_search on {label}: {hi.numel()} windows ({n_valid} valid, "
-        f"{n_hit} hits), n_steps {ddb.n_steps}: launch alone "
+        f"{n_hit} hits), n_steps {ddb.n_steps}, valid windows by their "
+        f"bucket's path {rec['row_paths']}: launch alone "
         f"{rec['ms']:.4f} ms L2 flushed, {rec['warm_ms']:.4f} ms warm; "
         f"plain {rec['plain_ms']:.4f} ms; bound {rec['bound_ms']:.4f} ms "
-        f"({rec['sectors']} distinct 32-B lo sectors); max_abs_err {err}")
+        f"({rec['sectors']} distinct 32-B lo sectors); max_abs_err {err}; "
+        f"in turns, L2 flushed (ms): "
+        + ", ".join(f"{k} {v:.4f}" for k, v in turns.items()))
     return got, rec
 
 
-def probe_search_record(T, db, ddb, flat, flush, label: str) -> dict:
-    """:func:`time_search` on ``ddb`` (the binary-search tier of ``db``),
+def probe_search_record(T, db, ddb, flat, flush, label: str,
+                        decompose: bool = False) -> dict:
+    """:func:`time_search` on ``ddb`` (the binary-search tier of ``db``,
+    with the decomposition where ``decompose``),
     the kernel's planes also against numpy searchsorted over all of
     ``db.keys``, beside torch.searchsorted of the windows' int64 codes in
     the keys plus the equality test (the library call)."""
     import torch
-    got, rec = time_search(ddb, flat, flush, label)
+    got, rec = time_search(ddb, flat, flush, label, decompose)
     hi, lo, valid = flat
     h, lw, v = (x.cpu().numpy() for x in flat)
     codes = h.astype(np.int64) * 8000 + lw
@@ -2976,7 +3098,8 @@ def phase_scale(host, T, n_keys: int, which, params, flush, card: str):
         log(f"scale {label}: the port's pick (from_db, no flags) built and "
             f"uploaded in {time.time() - t0:.1f} s")
         rec = probe_search_record(T, db, ddb_bin, tuple(
-            x.reshape(-1) for x in flat), flush, f"the {label} scale DB")
+            x.reshape(-1) for x in flat), flush, f"the {label} scale DB",
+            decompose=label == "skewed")
         want = T.probe_windows(ddb_bin, *flat)
         t0 = time.time()
         keep = {"binary_search": ddb_bin}
@@ -3030,11 +3153,113 @@ def deep_sweeps(T, GX, dev, keep_deep: dict) -> dict:
     return out
 
 
+# the synthetic binary table past 2^30 keys: BIG_BUCKETS buckets of
+# BIG_DEPTH keys, bucket h holding lo = BIG_STRIDE * k for k < BIG_DEPTH
+# (n = 1,091,200,000; lo 4.4 GB, payload 17.5 GB)
+BIG_BUCKETS = 3_200_000
+BIG_DEPTH = 341
+BIG_STRIDE = 23
+BIG_FIRST = 1 << 30      # the windows' buckets start at or above it
+
+
+def big_table(dev):
+    """The synthetic table, made on the card with torch: lo_arr as above
+    (the sentinel -1 at n), payload row i = (i, i + 1, -i, i) and row n
+    the miss row (-1, -1, 0, 0), bucket h = [341h, 341h + 341); n_steps
+    as from_db sets it."""
+    import math
+    import torch
+    n = BIG_BUCKETS * BIG_DEPTH
+    lo_arr = torch.empty(n + 1, dtype=torch.int32, device=dev)
+    keys = torch.arange(BIG_DEPTH, dtype=torch.int32, device=dev) * BIG_STRIDE
+    lo_arr[:n].view(BIG_BUCKETS, BIG_DEPTH).copy_(
+        keys.expand(BIG_BUCKETS, BIG_DEPTH))
+    lo_arr[n] = -1
+    payload = torch.empty((n + 1, 4), dtype=torch.int32, device=dev)
+    r = torch.arange(n + 1, dtype=torch.int32, device=dev)
+    payload[:, 0] = r
+    payload[:, 3] = r
+    payload[:, 2] = r.neg_()
+    payload[:, 1] = r.neg_().add_(1)
+    del r
+    payload[n] = torch.tensor([-1, -1, 0, 0], dtype=torch.int32, device=dev)
+    start = torch.arange(BIG_BUCKETS, dtype=torch.int32,
+                         device=dev) * BIG_DEPTH
+    pair = torch.stack([start, start + BIG_DEPTH], dim=1).contiguous()
+    return types.SimpleNamespace(
+        bucket_pair=pair, lo=lo_arr, payload=payload, n=n,
+        n_steps=max(1, math.ceil(math.log2(BIG_DEPTH + 1))))
+
+
+def phase_big_table(flush, card: str) -> dict:
+    """probe_search on :func:`big_table`: 1,245,184 windows into buckets
+    that start at or above 2^30 (6 in 8 planted keys, 1 in 8 a lo between
+    two keys, 1 in 8 invalid); the kernel equal to its plain version (in
+    :func:`time_search`) and both to the analytic idx and payload rows.
+    Each tree of :data:`SEARCH_TREES` runs the same windows, and its
+    windows that differ from the analytic planes are counted (a tree
+    whose midpoint wraps misses there).  Returns the record."""
+    import torch
+    from close_kmers_tpu_torch.ops import probe_search as PSr
+    dev = flush.device
+    t0 = time.time()
+    tab = big_table(dev)
+    torch.cuda.synchronize()
+    t_build = time.time() - t0
+    rng = np.random.default_rng(12)
+    nw = BATCH * 304
+    h0 = -(-BIG_FIRST // BIG_DEPTH)        # the first bucket at >= 2^30
+    h = rng.integers(h0, BIG_BUCKETS, size=nw)
+    k = rng.integers(0, BIG_DEPTH, size=nw)
+    kind = rng.integers(0, 8, size=nw)
+    lo = BIG_STRIDE * k + np.where(kind == 6, rng.integers(1, BIG_STRIDE,
+                                                           size=nw), 0)
+    valid = kind != 7
+    hit = kind < 6
+    n = tab.n
+    want_idx = np.where(hit, h * BIG_DEPTH + k, n)
+    want_rows = np.where(hit[:, None], np.stack(
+        [want_idx, want_idx + 1, -want_idx, want_idx], axis=1),
+        np.array([-1, -1, 0, 0]))
+    flat = tuple(torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+                 for x in (h.astype(np.int32), lo.astype(np.int32), valid))
+
+    def wrong(planes) -> int:
+        g = [x.cpu().numpy() for x in planes]
+        rows = np.stack([g[1], g[2], g[3], g[4].view(np.int32)], axis=1)
+        bad = ((g[0] != hit) | (g[5] != want_idx)
+               | (rows != want_rows).any(axis=1))
+        return int(bad.sum())
+
+    got, rec = time_search(tab, flat, flush, "the 1.09e9-key table",
+                           hold_trees=False)
+    check(wrong(got) == 0, "probe_search (and its plain version) differ "
+          "from the analytic planes on the 1.09e9-key table")
+    rec["trees_wrong"] = {}
+    for tree, mod in SEARCH_TREES.items():
+        out = mod.search_outputs(flat[0].shape, dev)
+        mod._launch(*flat, tab.bucket_pair, tab.lo, tab.payload, n,
+                    tab.n_steps, out)
+        torch.cuda.synchronize()
+        rec["trees_wrong"][tree] = wrong(out)
+    rec.update(keys=n, first_start=h0 * BIG_DEPTH, build_s=t_build)
+    log(f"probe_search on {n:,} keys (buckets of {BIG_DEPTH} starting at "
+        f"{h0 * BIG_DEPTH:,} and above, table made on the card in "
+        f"{t_build:.1f} s): the kernel and the plain version equal the "
+        f"analytic idx and rows on all {nw:,} windows ({int(hit.sum()):,} "
+        f"planted keys); windows wrong by tree: "
+        f"{json.dumps(rec['trees_wrong'])}; {card}")
+    del tab, got, flat
+    torch.cuda.empty_cache()
+    return rec
+
+
 def run_scale(host, T, wrappers, n_keys: int, which, params, device,
               card: str):
-    """:func:`phase_scale` as a path of its own: every kernel's count set
-    to 0 just before it and read just after; the kernels of SCALE_KERNELS
-    must each have launched in it.  Returns (its results, its counts)."""
+    """:func:`phase_scale` and :func:`phase_big_table` as a path of its
+    own: every kernel's count set to 0 just before it and read just
+    after; the kernels of SCALE_KERNELS must each have launched in it.
+    Returns (its results, the big table's record, its counts)."""
     import torch
     for fn in wrappers.values():
         fn.launches = 0
@@ -3042,6 +3267,7 @@ def run_scale(host, T, wrappers, n_keys: int, which, params, device,
     t0 = time.time()
     flush = torch.empty(64 << 20, dtype=torch.int32, device=device)
     scale = phase_scale(host, T, n_keys, which, params, flush, card)
+    big = phase_big_table(flush, card)
     del flush
     counts = {name: fn.launches for name, fn in wrappers.items()}
     peak = torch.cuda.max_memory_allocated()
@@ -3051,20 +3277,20 @@ def run_scale(host, T, wrappers, n_keys: int, which, params, device,
     for name in SCALE_KERNELS:
         check(counts[name] > 0, f"{name} was never launched on the scale "
               f"path")
-    return scale, counts
+    return scale, big, counts
 
 
-def scale_record(scale: dict) -> dict:
+def scale_record(scale: dict, big: dict) -> dict:
     """probe_search's kernel record: the skewed scale DB's numbers (the
-    DB the port's ladder sends to the binary search), the other DBs'
-    beside them."""
+    DB the port's ladder sends to the binary search), the other DBs' and
+    the 1.09e9-key table's (``past_2e30``) beside them."""
     label = "skewed" if "skewed" in scale else next(iter(scale))
     rec = dict(name="probe_search", route="cuda",
                source="close_kmers_tpu_torch/csrc/probe_search.cu",
                replaces="close_kmers_tpu/core/engine.py:603",
                db=label, **scale[label]["probe_search"])
     rec.update({k: v["probe_search"] for k, v in scale.items()
-                if k != label})
+                if k != label}, past_2e30=big)
     return rec
 
 
@@ -3079,15 +3305,15 @@ def scale_only(host, T, wrappers, args, params, device, kind: str,
         deep_sweeps(T, GX, device, {"binary_search": T.DeviceDB.from_db(
             GX.deep_db(), device)})
         torch.cuda.empty_cache()
-    scale, counts = run_scale(host, T, wrappers, args.scale_keys,
-                              args.scale_only, params, device, card)
+    scale, big, counts = run_scale(host, T, wrappers, args.scale_keys,
+                                   args.scale_only, params, device, card)
     log(f"scale phase passed in {time.time() - t_start:.1f} s: "
         + json.dumps({k: dict(stats=v["stats"], card_tier=v["card_tier"],
                               jax_tier=v["jax_tier"],
                               e2e={t: round(r) for t, r in v["e2e"].items()
                                    if t != "passes"})
                       for k, v in scale.items()}))
-    print(json.dumps({"kernels": [dict(scale_record(scale),
+    print(json.dumps({"kernels": [dict(scale_record(scale, big),
                                        launches=counts["probe_search"])]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -3247,7 +3473,10 @@ def parse_args(argv: list[str]):
                     metavar="LABEL=DIR",
                     help="a tree (e.g. the parent commit unpacked by git "
                          "archive) whose best_call kernel and wrapper "
-                         "phase 2 times in turns with this tree's")
+                         "phase 2 times in turns with this tree's, and "
+                         "whose probe_search kernel every probe_search "
+                         "timing (phase 2, the scale phase, the 1.09e9-key "
+                         "table) runs in turns with this tree's")
     ap.add_argument("--scale-keys", type=int, default=SCALE_KEYS,
                     help="keys of each scale-phase DB (default "
                          f"{SCALE_KEYS:,})")
@@ -3351,7 +3580,11 @@ def main(argv: list[str]) -> int:
         f" {torch.cuda.device_count()} device(s))")
     t0 = time.time()
     _build.build(force=True, verbose=True)
-    log(f"phase 1: nvcc built {_build.LIB} in {time.time() - t0:.1f} s")
+    log(f"phase 1: nvcc built {_build.LIB} in {time.time() - t0:.1f} s; "
+        f"probe_search's kernels (template arguments: registers, spill "
+        f"bytes): {json.dumps(search_registers(_build.ptxas_report))}")
+    SEARCH_TREES.update({k: kernel_tree(v, k, "probe_search")
+                         for k, v in trees.items()})
     params = host.EngineParams()
     if args.scale_only is not None:
         return scale_only(host, T, wrappers, args, params, device, kind,
@@ -3370,7 +3603,7 @@ def main(argv: list[str]) -> int:
     torch.cuda.synchronize()
     check(ds.ddb.tier == eng.fa.ddb.tier == T.card_tier(db),
           f"the query DB took the {ds.ddb.tier} tier")
-    log(f"set-up: two {ds.ddb.tier} tables of {table_bytes(T, ds.ddb)} B "
+    log(f"set-up: two {ds.ddb.tier} tables of {ds.ddb.table_bytes()} B "
         f"built and uploaded in {time.time() - t0:.1f} s")
     t0 = time.time()
     dfs = eng._device_family_scorer(mapping)
@@ -3395,7 +3628,7 @@ def main(argv: list[str]) -> int:
     check(ds_deep.ddb.tier == eng_deep.fa.ddb.tier == T.card_tier(db_deep),
           f"the deep DB took the {ds_deep.ddb.tier} tier")
     log(f"set-up: two {ds_deep.ddb.tier} tables of "
-        f"{table_bytes(T, ds_deep.ddb)} B (n_steps {ds_deep.ddb.n_steps}) "
+        f"{ds_deep.ddb.table_bytes()} B (n_steps {ds_deep.ddb.n_steps}) "
         f"built and uploaded in {time.time() - t0:.1f} s")
     t0 = time.time()
     genome = synth_genome(np.random.default_rng(4), offsets[:, :PROT_LEN],
@@ -3411,7 +3644,7 @@ def main(argv: list[str]) -> int:
     flush = torch.empty(64 << 20, dtype=torch.int32, device=device)
     d_off_b = torch.from_numpy(d_off[:BATCH]).to(device)
     d_len_b = torch.from_numpy(d_len[:BATCH]).to(device)
-    compare = {k: best_call_tree(v, k) for k, v in trees.items()}
+    compare = {k: kernel_tree(v, k, "best_call") for k, v in trees.items()}
     # probe_select's tiers, built by name: the query DB's payload-wide
     # rows and the deep DB's sub blocks
     pw = T.DeviceDB.from_numpy(T.tier_tables(db, "payload_wide"), device,
@@ -3432,7 +3665,8 @@ def main(argv: list[str]) -> int:
     search_recs = {
         label: time_search(d.ddb, tuple(x.reshape(-1) for x in
                                         T.encode_windows(o, n)),
-                           flush, f"the {label} cell's windows")[1]
+                           flush, f"the {label} cell's windows",
+                           decompose=label == "query")[1]
         for label, d, o, n in (("query", ds, off_d, len_d),
                                ("deep", ds_deep, d_off_b, d_len_b))}
     search_recs["genome"], kernels["scan_score"]["genome"] = \
@@ -3523,10 +3757,10 @@ def main(argv: list[str]) -> int:
     # after
     del ds, eng, dfs, mapping
     torch.cuda.empty_cache()
-    scale, scale_counts = run_scale(host, T, wrappers, args.scale_keys,
-                                    [label for label, _, _ in SCALE_DBS],
-                                    params, device, card)
-    kernels["probe_search"] = dict(scale_record(scale), **search_recs)
+    scale, big, scale_counts = run_scale(
+        host, T, wrappers, args.scale_keys,
+        [label for label, _, _ in SCALE_DBS], params, device, card)
+    kernels["probe_search"] = dict(scale_record(scale, big), **search_recs)
 
     # -- phase 5: the main path went through every kernel
     log(f"phase 5: launches on the main path: {launches}, probe_select "

@@ -27,7 +27,9 @@ The probe tiers, in the order ``probe_windows`` tries them:
   by the matched row;
 * the binary search: a branchless lower bound over the bucket's slice
   of the sorted lo array, ``n_steps`` halvings, then the payload, by the
-  ``probe_search`` kernel.
+  ``probe_search`` kernel (which reads each bucket's search row, built
+  beside the tables at the first probe on the card:
+  ``DeviceDB.search_rows``).
 
 fused_wide and lo_wide are plain torch on every device, as the JAX
 package left them to XLA; the port's ladder never picks them.
@@ -47,6 +49,7 @@ Left out on purpose:
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 
 import numpy as np
@@ -57,7 +60,7 @@ from ..params import EngineParams
 from ..db.signature_db import SignatureDB
 from ..ops import encoder
 from . import oracle as O
-from ..ops.probe_search import probe_search
+from ..ops.probe_search import ROW_W, probe_search, search_rows as _search_rows
 from ..ops.probe_select import probe_select
 from ..utils.device import resolve_device
 
@@ -157,11 +160,12 @@ def tier_stats(db: SignatureDB) -> TierStats:
 
 def tier_bytes(st: TierStats, tier: str) -> int:
     """Bytes of the tables :meth:`DeviceDB.from_db` uploads for ``tier``,
-    the one-row dummies of the arrays the layout makes dead included."""
+    the one-row dummies of the arrays the layout makes dead included, and
+    the binary-search tier's search rows (:meth:`DeviceDB.table_bytes`)."""
     W = max(1, st.max_bucket)
     pair, lo, payload = st.H * 8, (st.n + 1) * 4, (st.n + 1) * 16
     if tier == "binary_search" or st.n == 0:
-        return pair + lo + payload
+        return pair + lo + payload + st.H * ROW_W * 4
     if tier == "payload_wide":
         return st.H * _lane_pad(1 + 5 * W) * 4 + 4 + 16
     if tier == "sub_blocks":
@@ -369,6 +373,24 @@ class DeviceDB:
                 return name
         return "binary_search"
 
+    @functools.cached_property
+    def search_rows(self) -> torch.Tensor | None:
+        """The binary-search tier's index for the probe_search kernel
+        (``ops.probe_search.search_rows``: each bucket's start, end and
+        twelve keys or pivots), built from ``bucket_pair`` and ``lo`` on
+        their device at first use and kept; None on the other tiers."""
+        if self.tier != "binary_search":
+            return None
+        return _search_rows(self.bucket_pair, self.lo, self.n)
+
+    def table_bytes(self) -> int:
+        """Bytes of the tables on the device: :attr:`ARRAYS` and, on the
+        binary-search tier, the search rows (built here at first use)."""
+        rows = self.search_rows
+        return sum(getattr(self, f).numel() * 4 for f in self.ARRAYS
+                   if getattr(self, f) is not None) + (
+            rows.numel() * 4 if rows is not None else 0)
+
     @classmethod
     def from_db(cls, db: SignatureDB, device, wide: bool | None = None,
                 wide_payload: bool | None = None, sub: bool | None = None,
@@ -516,7 +538,8 @@ def probe_windows(ddb: DeviceDB, hi, lo, valid):
     if ddb.fused_wide is None and ddb.lo_wide is None:
         return probe_search(hi.contiguous(), lo.contiguous(),
                             valid.contiguous(), ddb.bucket_pair, ddb.lo,
-                            ddb.payload, n, ddb.n_steps)
+                            ddb.payload, n, ddb.n_steps,
+                            ddb.search_rows if ddb.lo.is_cuda else None)
 
     hi_c = torch.where(valid, hi, 0)
     lo_c = torch.where(valid, lo, -2)

@@ -30,6 +30,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _lib = None
 _fns: dict = {}
+# the compiler's report of the last verbose build (``-Xptxas -v``)
+ptxas_report = ""
 
 
 def _sources() -> list[str]:
@@ -48,8 +50,10 @@ def _nvcc() -> str:
 
 def build(force: bool = False, verbose: bool = False) -> str:
     """Compile ``csrc/*.cu`` into :data:`LIB` unless it is newer than
-    every source; returns its path.  ``verbose`` adds ``-Xptxas -v`` and
-    prints the compiler's report (registers, shared memory, spills)."""
+    every source; returns its path.  ``verbose`` adds ``-Xptxas -v``,
+    prints the compiler's report (registers, shared memory, spills) and
+    keeps it in :data:`ptxas_report`."""
+    global ptxas_report
     srcs = _sources()
     deps = srcs + glob.glob(os.path.join(CSRC, "*.cuh"))
     if (not force and os.path.exists(LIB)
@@ -65,7 +69,7 @@ def build(force: bool = False, verbose: bool = False) -> str:
                "-c", "-o", obj, src]
         jobs.append((cmd, obj, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
-    failed = []
+    failed, report = [], []
     for cmd, obj, proc in jobs:       # wait for every compiler started
         out, err = proc.communicate()
         if proc.returncode:
@@ -73,6 +77,7 @@ def build(force: bool = False, verbose: bool = False) -> str:
                           f"{' '.join(cmd)}\n{out}{err}")
         elif verbose:
             sys.stderr.write(out + err)
+            report.append(out + err)
     objs = [obj for _, obj, _ in jobs]
     try:
         if failed:
@@ -89,6 +94,8 @@ def build(force: bool = False, verbose: bool = False) -> str:
             if os.path.exists(obj):
                 os.remove(obj)
     os.replace(tmp, LIB)   # atomic: a concurrent process never loads a torn file
+    if verbose:
+        ptxas_report = "".join(report)
     return LIB
 
 

@@ -13,7 +13,8 @@ Experiments (default: xla111 xla128 xla32 xla8 dma_gather):
                             the same ids unsorted
   vgather                   gathers from a tile held in shared memory
   hbmstream                 a sequential stream of the table (GB/s)
-  dmaflush                  32,768 scattered 4 KB block writes
+  dmaflush                  32,768 scattered 4 KB block writes, then
+                            the same by one index_copy_
   deepcmp                   a PATRIC-density DB (20M keys over 64,000 hi
                             buckets) probed through the sub_blocks tier
                             and through the binary search, whose outputs
@@ -87,6 +88,17 @@ def sum4(rows):
     """The JAX experiments' check value of gathered rows: the int32
     (wrapping) sum of their first four columns, as f32."""
     return rows[:, :4].sum(dtype=torch.int32).float()
+
+
+def flush_by_index_copy(dst, buf, rows_per_dma: int):
+    """dmaflush's function as one PyTorch call: ``index_copy_`` of the
+    blocks (``buf``'s slots repeated for every program, made beforehand)
+    into their destination blocks.  Returns the call, which returns its
+    output as dmaflush lays it out."""
+    blocks = buf.reshape(dst.shape[1], -1).repeat(dst.shape[0], 1)
+    flat = dst.reshape(-1).long()
+    out = torch.empty_like(blocks)
+    return lambda: out.index_copy_(0, flat, blocks).view(-1, buf.shape[1])
 
 
 def xla_gather(table, idx):
@@ -239,6 +251,12 @@ def run(which, device, seed: int = 0, deep: SignatureDB | None = None
         print(f"  -> {p / FLUSH_DMAS * 1e9:.0f} ns/DMA "
               f"({FLUSH_DMAS * FLUSH_RPD * 128 * 4 / 1e9 / p:.0f} GB/s)",
               flush=True)
+        # the one PyTorch call that computes it
+        copy = flush_by_index_copy(dst, buf, FLUSH_RPD)
+        if not torch.equal(copy(), gx.dmaflush(dst, buf, FLUSH_RPD)):
+            raise AssertionError("index_copy_ differs from dmaflush")
+        per["dmaflush_index_copy"] = measure(
+            "dmaflush_index_copy", lambda: sum4(copy()[::4096]))
 
     if "deepcmp" in which:
         per.update(deepcmp(deep if deep is not None else deep_db(), device,

@@ -1059,9 +1059,15 @@ def test_sharded_step_on_card_matches_single_card(cuda, shape, deep):
 
 
 # bucket depths of the probe_search DBs: empty, one key, both sides of
-# each power of two up to 2^11, and ~2,500 keys (n_steps 12)
+# each power of two up to 2^11, both sides of each limit of the kernel's
+# search rows (6 and 12 keys held in the row, 32-bit or 16-bit slots; 90
+# and 168 keys, whose pivots leave segments of up to 12 keys, past which
+# it halves) and of the k-ary rounds the quarter-warp experiment takes
+# (29, 260 and 2,348 keys), and ~2,500 keys (n_steps 12)
 SEARCH_DEPTHS = (0, 1, *(d for k in range(1, 12)
-                         for d in (2 ** k - 1, 2 ** k, 2 ** k + 1)), 2500)
+                         for d in (2 ** k - 1, 2 ** k, 2 ** k + 1)),
+                 6, 12, 13, 28, 29, 30, 90, 91, 168, 169, 260, 261, 2348,
+                 2349, 2500)
 
 
 def search_db(seed: int):
@@ -1083,6 +1089,14 @@ def search_db(seed: int):
                      rng.integers(0, 300, size=n).astype(np.int32),
                      rng.uniform(0.1, 3.0, size=n).astype(np.float32),
                      functions=[f"fn{i}" for i in range(99)])
+    return (db, *_search_windows(rng, keys, his))
+
+
+def _search_windows(rng, keys, his):
+    """Windows against the buckets at ``his``: every key of ``keys``, 40
+    random lo codes in each bucket and its lo 0 and 7999 (below and above
+    its keys), 3,000 random codes, then 2,000 invalid windows of any hi
+    (six outside the table) and lo; shuffled.  Returns (hi, lo, valid)."""
     codes = [keys]
     for h in his:
         codes += [h * P.LO_CARD + rng.integers(0, P.LO_CARD, size=40),
@@ -1100,18 +1114,57 @@ def search_db(seed: int):
                          .astype(np.int32)])
     valid = np.concatenate([valid, np.zeros(n_bad, dtype=bool)])
     order = rng.permutation(len(hi))
-    return db, hi[order], lo[order], valid[order]
+    return hi[order], lo[order], valid[order]
+
+
+# depths whose buckets round_db starts at every residue mod 32 (the
+# kernel loads 16-B chunks of lo from a multiple of 4 on), and those it
+# starts at every residue mod 4
+ROUND_DEPTHS_32 = (1, 2, 3, 4, 6, 7, 12, 13, 28, 29, 30, 32, 33, 90, 91,
+                   168, 169, 260, 261)
+ROUND_DEPTHS_4 = (2348, 2349)
+
+
+def round_db(seed: int):
+    """A DB whose buckets, at increasing hi, put each ROUND_DEPTHS_32
+    depth at a start of every residue mod 32 and each ROUND_DEPTHS_4
+    depth at every residue mod 4 (a filler bucket of 0-31 keys before
+    each), random lo codes in 1..7998; windows as search_db's.  Returns
+    (db, hi, lo, valid)."""
+    rng = np.random.default_rng(seed)
+    depths, pos = [], 0
+    for mod, ds in ((32, ROUND_DEPTHS_32), (4, ROUND_DEPTHS_4)):
+        for r in range(mod):
+            for d in ds:
+                depths += [(r - pos) % 32, d]
+                pos += depths[-2] + d
+    his = np.sort(rng.choice(P.HI_CARD, size=len(depths), replace=False))
+    keys = np.concatenate([
+        h * P.LO_CARD + np.sort(rng.choice(np.arange(1, P.LO_CARD - 1),
+                                           size=d, replace=False))
+        for h, d in zip(his, depths)]).astype(np.int64)
+    n = len(keys)
+    db = SignatureDB(keys, rng.integers(0, 99, size=n).astype(np.int32),
+                     rng.integers(-1, 8, size=n).astype(np.int32),
+                     rng.integers(0, 300, size=n).astype(np.int32),
+                     rng.uniform(0.1, 3.0, size=n).astype(np.float32),
+                     functions=[f"fn{i}" for i in range(99)])
+    return (db, *_search_windows(rng, keys, his))
 
 
 def _search_args(ddb, dev, aligned: bool):
-    """probe_search's table arguments from ``ddb`` on ``dev``; unaligned:
-    bucket_pair and payload as contiguous views 4 B into a buffer, so
-    that the kernel takes its 4-B loads."""
-    tabs = [ddb.bucket_pair, ddb.lo, ddb.payload]
+    """probe_search's table arguments from ``ddb`` on ``dev``, its search
+    rows last; unaligned: bucket_pair, lo, payload and the rows as
+    contiguous views 4 B into a buffer, so that the kernel takes its 4-B
+    loads."""
+    from close_kmers_tpu_torch.ops.probe_search import search_rows
+    tabs = [ddb.bucket_pair, ddb.lo, ddb.payload,
+            search_rows(ddb.bucket_pair, ddb.lo, ddb.n)]
     if not aligned:
         tabs = [torch.cat([torch.zeros(1, dtype=torch.int32),
                            t.reshape(-1)])[1:].view(t.shape) for t in tabs]
-    return [t.to(dev) for t in tabs] + [ddb.n, ddb.n_steps]
+    tabs = [t.to(dev) for t in tabs]
+    return tabs[:3] + [ddb.n, ddb.n_steps, tabs[3]]
 
 
 def _shifted(t, dev, aligned: bool):
@@ -1122,17 +1175,53 @@ def _shifted(t, dev, aligned: bool):
     return torch.cat([t[:1], t]).to(dev)[1:]
 
 
-@pytest.mark.parametrize("B", [1, 20_479])
+def _binary(made):
+    """(the binary-search DeviceDB on the CPU, hi, lo, valid) of a
+    search_db / round_db result."""
+    db, hi, lo, valid = made
+    return (DeviceDB.from_db(db, "cpu", **JAX_TIER_FLAGS["binary_search"]),
+            hi, lo, valid)
+
+
+def wide_tables(seed: int):
+    """search_db(seed)'s binary-search tables carried over with the keys
+    of every odd hi bucket mapped by lo * 97 - 300,000 (order kept, so
+    -300,000 to 475,903: past 16 bits and below 0, which the kernel's
+    search rows hold as 32-bit slots), the windows of those buckets
+    mapped alike.  Returns (DeviceDB on the CPU, hi, lo, valid)."""
+    d, hi, lo, valid = _binary(search_db(seed))
+    pair = d.bucket_pair.numpy()
+    size = pair[:, 1] - pair[:, 0]
+    odd = np.repeat(np.arange(len(pair)) % 2 == 1, size)
+    lo_arr = d.lo.numpy().copy()
+    lo_arr[:-1][odd] = lo_arr[:-1][odd] * 97 - 300_000
+    fields = {f: None if getattr(d, f) is None else getattr(d, f).numpy()
+              for f in DeviceDB.ARRAYS}
+    ddb = DeviceDB.from_numpy(dict(fields, lo=lo_arr, n=d.n,
+                                   n_steps=d.n_steps), "cpu")
+    lo = np.where(valid & (hi % 2 == 1), lo * 97 - 300_000, lo)
+    return ddb, hi, lo.astype(np.int32), valid
+
+
+SEARCH_DBS = {"search0": lambda: _binary(search_db(0)),
+              "search1": lambda: _binary(search_db(1)),
+              "rounds": lambda: _binary(round_db(3)),
+              "wide": lambda: wide_tables(6)}
+
+
+@pytest.mark.parametrize("B", [1, 20_479, 90_000])
 @pytest.mark.parametrize("aligned", [True, False])
-@pytest.mark.parametrize("seed", [0, 1])
-def test_probe_search_kernel_matches_plain(cuda, B, aligned, seed):
+@pytest.mark.parametrize("which", sorted(SEARCH_DBS))
+def test_probe_search_kernel_matches_plain(cuda, B, aligned, which):
     """ck_probe_search against probe_search_plain, bit for bit, on the
-    search_db windows (B of them, the windows repeated past their
-    count), through both load widths, with its launch counted."""
+    windows of search_db (every bucket depth around the search rows'
+    limits), round_db (bucket starts at every residue mod 32) and
+    wide_tables (keys past 16 bits: 32-bit row slots), B of them (the
+    windows repeated past their count), through both load widths, with
+    its launch counted."""
     from close_kmers_tpu_torch.ops.probe_search import (probe_search,
                                                         probe_search_plain)
-    db, hi, lo, valid = search_db(seed)
-    ddb = DeviceDB.from_db(db, "cpu", **JAX_TIER_FLAGS["binary_search"])
+    ddb, hi, lo, valid = SEARCH_DBS[which]()
     assert ddb.n_steps == 12
     idx = np.arange(B) % len(hi)
     wins = [torch.from_numpy(np.ascontiguousarray(a[idx]))
@@ -1151,6 +1240,68 @@ def test_probe_search_kernel_matches_plain(cuda, B, aligned, seed):
         assert 1000 < int(got[0].sum()) < B
 
 
+@pytest.mark.parametrize("shift", [1, 2, 3])
+def test_probe_search_kernel_lo_alone_misaligned(cuda, shift):
+    """lo_arr alone starts 4, 8 or 12 B past a 16-B boundary (the pair and
+    payload aligned): the kernel takes its 4-B lo loads and equals the
+    plain version."""
+    from close_kmers_tpu_torch.ops.probe_search import (probe_search,
+                                                        probe_search_plain)
+    db, hi, lo, valid = round_db(4)
+    ddb = DeviceDB.from_db(db, "cpu", **JAX_TIER_FLAGS["binary_search"])
+    wins = [torch.from_numpy(a) for a in (hi, lo, valid)]
+    want = probe_search_plain(*wins, ddb.bucket_pair, ddb.lo, ddb.payload,
+                              ddb.n, ddb.n_steps)
+    lo_arr = torch.cat([torch.zeros(shift, dtype=torch.int32),
+                        ddb.lo]).to(cuda)[shift:]
+    assert lo_arr.data_ptr() % 16 == 4 * shift
+    got = probe_search(*(w.to(cuda) for w in wins), ddb.bucket_pair.to(cuda),
+                       lo_arr, ddb.payload.to(cuda), ddb.n, ddb.n_steps)
+    torch.cuda.synchronize()
+    for w_, g in zip(want, got):
+        assert torch.equal(bits(w_), bits(g))
+    assert int(got[0].sum()) > 1000
+
+
+def test_probe_search_kernel_empty_db(cuda):
+    """A DB of 0 keys (n = 0, every bucket empty): every window misses,
+    with payload row 0 and idx 0, as the plain version gives."""
+    from close_kmers_tpu_torch.ops.probe_search import (probe_search,
+                                                        probe_search_plain)
+    _, hi, lo, valid = search_db(5)
+    empty = SignatureDB.from_entries([])
+    ddb = DeviceDB.from_db(empty, "cpu")
+    assert ddb.n == 0
+    wins = [torch.from_numpy(a) for a in (hi, lo, valid)]
+    ok = (wins[0] >= 0) & (wins[0] < ddb.bucket_pair.shape[0])
+    wins = [w[ok | ~wins[2]] for w in wins]
+    want = probe_search_plain(*wins, ddb.bucket_pair, ddb.lo, ddb.payload,
+                              0, ddb.n_steps)
+    got = probe_search(*(w.to(cuda) for w in wins),
+                       *_search_args(ddb, cuda, True))
+    torch.cuda.synchronize()
+    for w_, g in zip(want, got):
+        assert torch.equal(bits(w_), bits(g))
+    assert not got[0].any() and (got[5] == 0).all()
+
+
+def test_probe_search_kernel_refuses_bad_rows(cuda):
+    """Search rows of another shape, type or device raise before any
+    launch."""
+    from close_kmers_tpu_torch.ops.probe_search import probe_search
+    db, hi, lo, valid = search_db(0)
+    ddb = DeviceDB.from_db(db, "cpu")
+    wins = [torch.from_numpy(a).to(cuda) for a in (hi, lo, valid)]
+    args = _search_args(ddb, cuda, True)
+    rows = args[-1]
+    before = probe_search.launches
+    for bad in (rows[:-1], rows[:, :-1].contiguous(), rows.long(),
+                rows.cpu(), rows.t().contiguous().t()):
+        with pytest.raises(ValueError):
+            probe_search(*wins, *args[:-1], bad)
+    assert probe_search.launches == before
+
+
 def test_probe_search_kernel_carried_over_steps(cuda):
     """A table carried over with fewer n_steps than its buckets need: the
     kernel's search ends where the plain version's does, and both give
@@ -1163,7 +1314,14 @@ def test_probe_search_kernel_carried_over_steps(cuda):
               for f in DeviceDB.ARRAYS}
     ok = valid & (hi >= 0) & (hi < P.HI_CARD)
     wins = [torch.from_numpy(a[ok]) for a in (hi, lo, valid)]
+    pair = d.bucket_pair[wins[0].long()]
+    size = pair[:, 1] - pair[:, 0]
     for n_steps in (0, 3, 7, 12, 40):
+        # the windows of one launch take both branches where 0 < n_steps <
+        # 12: the count where the bucket converges, the halvings where not
+        converges = (size >> min(n_steps, 31))[size > 0] == 0
+        if 0 < n_steps < 12:
+            assert converges.any() and not converges.all()
         ddb = DeviceDB.from_numpy(dict(fields, n=len(db), n_steps=n_steps),
                                   "cpu")
         dg = DeviceDB.from_numpy(dict(fields, n=len(db), n_steps=n_steps),

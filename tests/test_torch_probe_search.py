@@ -4,8 +4,11 @@
 binary tier (``DeviceDB.from_db(sub=False, wide=False, wide_lo=False,
 fused=False)``), on DBs with buckets of 0, 1, 2^k - 1, 2^k, 2^k + 1 and
 ~2,500 keys (n_steps 12), first- and last-slot hits, invalid windows and
-tables carried over from the JAX DeviceDB, with its n_steps or fewer.
-Zero tolerance: every plane is integer, f32 compared by its int32 bits."""
+tables carried over from the JAX DeviceDB, with its n_steps or fewer;
+and on buckets that start at every residue mod 32.  Zero tolerance:
+every plane is integer, f32 compared by its int32 bits.  The halving
+step's midpoint differs from the JAX tier's on purpose past 2^30 keys
+(``test_midpoint_stays_in_int32``)."""
 
 import dataclasses
 
@@ -16,10 +19,13 @@ import torch
 
 from close_kmers_tpu.core import engine as E
 from close_kmers_tpu_torch.core import engine as T
-from close_kmers_tpu_torch.ops.probe_search import (probe_search,
-                                                    probe_search_plain)
+from close_kmers_tpu_torch.ops.probe_search import (NARROW_SLOTS, ROW_W,
+                                                    WIDE_SLOTS, midpoint,
+                                                    probe_search,
+                                                    probe_search_plain,
+                                                    search_rows)
 
-from test_torch_cuda import SEARCH_DEPTHS, search_db
+from test_torch_cuda import SEARCH_DEPTHS, round_db, search_db
 from test_torch_host import as_jax_db
 
 BINARY = dict(sub=False, wide=False, wide_lo=False, fused=False)
@@ -185,3 +191,113 @@ def test_wrapper_refuses_bad_inputs():
         probe_search(h, l_, v, *tabs[:4], -1)
     with pytest.raises(ValueError):
         probe_search(h, l_, v, *tabs[:3], td.n + 1, td.n_steps)
+
+
+def test_plain_matches_jax_on_bucket_residues():
+    """round_db: each depth around the kernel's round limits at a start of
+    every residue mod 32 (mod 4 for 2,348-2,349 keys)."""
+    db, hi, lo, valid = round_db(3)
+    jd = E.DeviceDB.from_db(as_jax_db(db), **BINARY)
+    td = T.DeviceDB.from_db(db, "cpu", **BINARY)
+    assert td.n_steps == jd.n_steps == 12
+    starts = db.bucket_start[:-1][np.diff(db.bucket_start) == 29]
+    assert sorted(set(starts % 32)) == list(range(32))
+    want = E.probe_windows(jd, jnp.asarray(hi), jnp.asarray(lo),
+                           jnp.asarray(valid))
+    got = probe_search_plain(*_torch((hi, lo, valid)), td.bucket_pair, td.lo,
+                             td.payload, td.n, td.n_steps)
+    _assert_planes([np.asarray(w) for w in want], got)
+    assert int(got[0].sum()) >= len(db)
+
+
+EDGE = 2 ** 31 - 1
+
+
+@pytest.mark.parametrize("left,right", [
+    (0, 0), (0, 1), (5, 9), (2 ** 30 - 1, 2 ** 30), (2 ** 30, 2 ** 30 + 341),
+    (2 ** 30 + 7, EDGE), (EDGE - 1, EDGE), (EDGE, EDGE), (0, EDGE),
+    (1_091_199_659, 1_091_200_000)])
+def test_midpoint_stays_in_int32(left, right):
+    """The plain version's (and the kernel's) midpoint of int32 left <=
+    right, up to 2^31 - 1, equals int64 (left + right) // 2.  The JAX
+    tier's (left + right) >> 1 (close_kmers_tpu/core/engine.py:615) wraps
+    there; the port differs from it on purpose, and equals it wherever
+    the sum stays below 2^31."""
+    lt = torch.tensor([left], dtype=torch.int32)
+    rt = torch.tensor([right], dtype=torch.int32)
+    got = midpoint(lt, rt)
+    assert got.dtype == torch.int32
+    assert int(got) == (left + right) // 2 == midpoint(left, right)
+    wraps = left + right >= 2 ** 31
+    assert (int((lt + rt) >> 1) == int(got)) != wraps
+
+
+def test_midpoint_random_pairs():
+    """10,000 random int32 pairs left <= right, half of them near
+    2^31 - 1, against int64 (left + right) // 2."""
+    rng = np.random.default_rng(9)
+    a = np.concatenate([rng.integers(0, EDGE, size=5000),
+                        rng.integers(EDGE - 5000, EDGE + 1, size=5000)])
+    b = np.concatenate([rng.integers(0, EDGE, size=5000),
+                        rng.integers(EDGE - 5000, EDGE + 1, size=5000)])
+    left, right = np.minimum(a, b), np.maximum(a, b)
+    got = midpoint(torch.from_numpy(left.astype(np.int32)),
+                   torch.from_numpy(right.astype(np.int32)))
+    assert np.array_equal(got.numpy().astype(np.int64), (left + right) // 2)
+
+
+def _row_keys_of(rows):
+    """Each row's slots as keys: 12 16-bit ones, or 6 32-bit ones where
+    bit 31 of end is set; (keys [H, 12] int64, wide [H])."""
+    wide = rows[:, 1] < 0
+    words = rows[:, 2:].astype(np.int64) & 0xFFFFFFFF
+    narrow = np.stack([words & 0xFFFF, words >> 16], axis=2).reshape(-1, 12)
+    wide_keys = np.concatenate([rows[:, 2:].astype(np.int64),
+                                np.zeros((len(rows), 6), np.int64)], axis=1)
+    return np.where(wide[:, None], wide_keys, narrow), wide
+
+
+@pytest.mark.parametrize("which", ["search", "rounds", "wide"])
+def test_search_rows_hold_keys_or_pivots(which):
+    """Each bucket's search row: start and end (bit 31 set where its slots
+    are 32-bit), then its keys where it holds up to 12 (6 where a key of
+    the row lies outside [0, 2^16)), else the keys at (j + 1) * s - 1 for
+    s = L // (slots + 1) + 1 inside it; the slots past them 0.  On every
+    bucket of search_db (0 to 2,500 keys), round_db, and search_db's keys
+    mapped past 16 bits in odd buckets."""
+    db = (round_db(3) if which == "rounds" else search_db(0))[0]
+    td = T.DeviceDB.from_db(db, "cpu")
+    lo = td.lo.numpy().copy()
+    pair = td.bucket_pair.numpy()
+    sizes = pair[:, 1] - pair[:, 0]
+    if which == "wide":
+        odd = np.repeat(np.arange(len(pair)) % 2 == 1, sizes)
+        lo[:-1][odd] = lo[:-1][odd] * 97 - 300_000
+    rows = search_rows(td.bucket_pair, torch.from_numpy(lo), td.n).numpy()
+    assert rows.dtype == np.int32 and rows.shape == (len(pair), ROW_W)
+    assert np.array_equal(rows[:, 0], pair[:, 0])
+    assert np.array_equal(rows[:, 1] & 0x7FFFFFFF, pair[:, 1])
+    keys, wide = _row_keys_of(rows)
+
+    def held(start, size, slots):
+        if size <= slots:
+            off = np.arange(size)
+        else:
+            s = size // (slots + 1) + 1
+            off = (np.arange(slots) + 1) * s - 1
+            off = off[off < size]
+        return lo[start + off]
+
+    for h in np.flatnonzero(sizes):
+        start, size = pair[h, 0], sizes[h]
+        narrow = held(start, size, NARROW_SLOTS)
+        assert wide[h] == bool(((narrow < 0) | (narrow >= 1 << 16)).any())
+        got = held(start, size, WIDE_SLOTS if wide[h] else NARROW_SLOTS)
+        want = np.zeros(12, np.int64)
+        want[:len(got)] = got
+        assert np.array_equal(keys[h], want), (h, size)
+    assert wide.any() == (which == "wide")
+    assert not rows[sizes == 0, 2:].any()
+    if which != "wide":
+        assert td.table_bytes() == T.tier_bytes(T.tier_stats(db),
+                                                "binary_search")
