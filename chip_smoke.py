@@ -4,7 +4,7 @@ genome, /matrix, probe-gather, TpuEngine, sharded serving,
 build_signature_kmers and PATRIC-scale paths on one NVIDIA card.
 
     python3 chip_smoke.py [--compare LABEL=DIR ...] [--scale-keys N]
-                          [--scale-only DBS] [--sweep-cap GB]
+                          [--scale-only DBS] [--sweep-cap GB] [--budgets]
 
 Builds the CUDA kernels from ``close_kmers_tpu_torch/csrc`` (one nvcc per
 source, in parallel) and drives the port's main paths on the card, phase
@@ -89,7 +89,9 @@ card, and exits 1 without one.
    for byte against
    tests/golden/*.resp; then a second context forced onto the device
    family program (device_family_min = 0), whose four /lookup modes and
-   /fq_lookup must give the first context's bytes.
+   /fq_lookup must give the first context's bytes; then a kser process
+   under --torch-profile-dir on the card: the /query conversation, SIGINT,
+   and its Chrome trace must hold a kernel of csrc/*.cu.
 4. Real size: bench.py's query corpus rebuilt from its seed (70,000
    source proteins x 300 aa, 4,096 functions: ~20.5M signature kmers;
    65,536 query proteins).
@@ -108,9 +110,9 @@ card, and exits 1 without one.
      mapping) on 256 query proteins, equal to a CPU engine.
    * family: bench.py's family universe (make_family_universe: kmer
      degree 1-3, 12,288 families) rebuilt from the same seed; all 65,536
-     proteins through KmerEngine.best_family_matches_padded (the auto
-     gate takes the famwide path), the same chunks through a two-gather
-     DeviceFamilyScorer(famwide=False) with equal packs, and a
+     proteins through KmerEngine.best_family_matches_padded on the card
+     gate's path (the two gathers) and on famwide rows forced beside it,
+     interleaved, the fused programs' packs equal on every chunk, and a
      4096-protein sample equal to the host path (native.family_scores
      and the scalar find_best_family_match).
    * reads: 20,000 synthetic 150-bp reads (scripts/fq_bench.py's
@@ -148,9 +150,10 @@ card, and exits 1 without one.
      --device cuda, and the same CLI with --device cpu, in two processes
      at the same time: byte-identical files and lines.
    * sharded (parallel/sharding.py): the query DB and its family table
-     range-sharded over four entries on card 0, meshes (1, 4) and
-     (2, 2), routed and replicated: serve_step_sharded on all 65,536
-     proteins with family rows, each best pack equal to
+     range-sharded over four entries on card 0 (every shard on the binary
+     search), meshes (1, 4) and (2, 2), routed and replicated:
+     serve_step_sharded on all 65,536 proteins with family rows, each
+     best pack equal to
      DeviceScorer.best_batch_packed and each rollup (parsed) to
      DeviceFamilyScorer.rollup; ShardedEngine.probe_compact equal to
      FastAnnotator's; probe_routed equal to probe_sharded at the default
@@ -158,13 +161,14 @@ card, and exits 1 without one.
      best_batch_packed's (interleaved, median of 3), one pass profiled by
      stage (torch.profiler ranges: encode, route, probe, family rows,
      exchange, scan, best_call, rollup), the kernels' launches a pass;
-     the deep DB on (1, 4) through each shard's sub blocks; the golden
+     the deep DB on (1, 4) through each shard's sub blocks (the JAX
+     module's per-shard layouts, jax_layouts=True); the golden
      conversations through 4-shard kser contexts (all replicated,
      /lookup and /query best calls routed); a one-rank NCCL group
      (multihost.initialize, pod_mesh (1, 1)) whose routed and replicated
      steps equal the single-card pack.  Its launch counts are set to 0
      just before it and read just after: the five kernels of the path
-     (probe_select, scan_score, row_gather, family_group, best_call) must
+     (probe_search, scan_score, row_gather, family_group, best_call) must
      each have launched in the sharded calls themselves.
    * scale (its own path: the counts set to 0 just before it and read
      just after): two DBs of --scale-keys (default
@@ -182,7 +186,17 @@ card, and exits 1 without one.
      flags) and on the JAX gates' pick (its flags), interleaved, as
      proteins/s, the packs equal and a 4,096-protein sample's best calls
      equal to native best-call over the searchsorted reference; on the
-     skewed DB probe_search's decomposition as on the query cell.  Then
+     skewed DB probe_search's decomposition as on the query cell; then
+     the family phase (scale_family): make_scale_db.scale_mapping (the
+     JAX scale serve's universe, 1-3 families a key), KmerEngine(db) with
+     its default gates, which must take the device family program; the
+     65,536 proteins through best_family_matches_padded in rounds (on the
+     uniform DB famwide rows forced beside the two gathers, interleaved,
+     their packs equal on every chunk, their kernels in turns), one pass
+     profiled (the card's busy share), a 4,096-protein sample equal to
+     the host path, the build seconds, table bytes and peak device and
+     host memory; probe_search, scan_score, best_call, row_gather and
+     family_group must each launch on this path.  Then
      a synthetic binary table of 3,200,000 buckets x 341 keys
      (1,091,200,000 keys, 22 GB, made on the card): 1,245,184 windows
      into buckets that start past 2^30, where the kernel and its plain
@@ -190,6 +204,11 @@ card, and exits 1 without one.
      wrong windows are counted: a midpoint that wraps misses there).
      ``--scale-only uniform,skewed`` runs phase 1 and this phase alone
      (``deep`` adds the deep DBs' tier sweeps before it).
+   ``--budgets`` runs, alone, what the family and routed budgets rest on:
+   famwide against two-gather end to end and by kernel and the chunk
+   sweep on the query cell and the uniform scale DB, the per-shard tiers
+   and the routed capacity sweep on the query, deep and skewed scale DBs
+   (``budgets``).
    ``--tier-e2e N`` runs, alone, the query DB's /query (device pack and
    slim pack + native), genome and /matrix rates on payload_wide and the
    binary search in turns, N rounds (``tier_e2e``); ``--port-root DIR``
@@ -1281,6 +1300,85 @@ def phase_golden(device) -> None:
             srv.close()
 
 
+def port_kernel_names() -> set:
+    """The ``__global__`` functions of the port's CUDA sources: the names
+    its kernels carry in a profiler trace (the ``ck_*`` C entry points
+    launch them)."""
+    import re
+    csrc = os.path.join(REPO, "close_kmers_tpu_torch", "csrc")
+    pat = re.compile(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)"
+                     r"\s+)?(\w+)")
+    names = set()
+    for f in sorted(os.listdir(csrc)):
+        if f.endswith(".cu"):
+            with open(os.path.join(csrc, f)) as fh:
+                names.update(pat.findall(fh.read()))
+    return names
+
+
+def phase_kser_profile() -> dict:
+    """kser --torch-profile-dir on the card: the server process on the
+    golden data dir (--device cuda), the /query golden conversation
+    byte for byte, SIGINT; its Chrome trace must exist, be named on its
+    stderr and hold a kernel of the port's CUDA sources.  Returns the
+    trace's kernel events by name (the port's)."""
+    import shutil
+    import signal
+    import subprocess
+    out = os.path.join(REPO, "close_kmers_tpu_torch", ".build",
+                       "chip_smoke_trace")
+    shutil.rmtree(out, ignore_errors=True)
+    os.makedirs(out)
+    port_file = os.path.join(out, "port")
+    t0 = time.time()
+    p = subprocess.Popen(
+        [sys.executable, "-m", "close_kmers_tpu_torch.cli.kser", "0",
+         os.path.join(GOLDEN, "data"), "--device", "cuda",
+         "--listen-port-file", port_file, "--torch-profile-dir", out],
+        cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        while not (os.path.exists(port_file)
+                   and open(port_file).read().strip()):
+            if p.poll() is not None:
+                raise SmokeFailure(f"kser --torch-profile-dir exited: "
+                                   f"{p.communicate()[1][-2000:]}")
+            check(time.time() - t0 < 300, "kser did not start listening")
+            time.sleep(0.2)
+        with open(os.path.join(GOLDEN, "queries.fa"), "rb") as f:
+            body = f.read()
+        with open(os.path.join(GOLDEN, "query.resp"), "rb") as f:
+            want = f.read()
+        got = _http(int(open(port_file).read()), GOLDEN_CONVS["query"](body))
+        check(got == want, "the profiled server's /query differs from the "
+              "golden bytes")
+        p.send_signal(signal.SIGINT)
+        _, err = p.communicate(timeout=300)
+    finally:
+        if p.poll() is None:
+            p.kill()
+            p.communicate()
+    traces = [f for f in os.listdir(out) if f.endswith(".pt.trace.json")]
+    check(len(traces) == 1, f"kser wrote {traces} into {out}")
+    path = os.path.join(out, traces[0])
+    check(f"trace written to {path}" in err, "kser did not name its trace")
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    ours = port_kernel_names()
+    seen: dict[str, int] = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            for k in ours:
+                if k in e.get("name", ""):
+                    seen[k] = seen.get(k, 0) + 1
+    check(seen, "the kser trace names none of the port's kernels")
+    log(f"phase 3: kser --torch-profile-dir on the card: /query golden "
+        f"bytes identical, SIGINT, trace {os.path.getsize(path)} B "
+        f"({len(events)} events) with the port's kernels "
+        f"{json.dumps(seen)}; {time.time() - t0:.1f} s")
+    shutil.rmtree(out)
+    return seen
+
+
 def reference_calls(host, T, db, offsets, lengths, params, max_calls=64):
     """Independent CPU reference for a sample: hits by a numpy
     searchsorted over the DB keys, scored by native.score_batch (at most
@@ -1304,44 +1402,77 @@ def reference_calls(host, T, db, offsets, lengths, params, max_calls=64):
                                    params, max_calls_per_seq=max_calls)
 
 
-def phase_family(TF, eng, mapping, offsets, lengths, params, device):
-    """Phase 4, family: all queries through best_family_matches_padded
-    (famwide, by the auto gate), the same chunks through a two-gather
-    scorer with equal packs, and a sample against the host path."""
+def use_scorer(eng, mapping, dfs) -> None:
+    """Put ``dfs`` in ``eng``'s scorer cache for ``mapping``: the engine's
+    family entry points then run the family program through it."""
+    eng._family_scorers[mapping] = (mapping.fam_csr(), dfs)
+
+
+def family_pass(eng, mapping, offsets, lengths):
+    """One pass of the /lookup?find_best_match=1 path over all of
+    ``offsets``: best_family_matches_padded to arrays, genus filter off
+    (as scripts/scale_1e9_serve.py runs it)."""
+    return eng.best_family_matches_padded(offsets, lengths, mapping,
+                                          genus_filter=False,
+                                          as_arrays=True)
+
+
+def family_rounds(eng, mapping, paths: dict, offsets, lengths,
+                  rounds: int = 3):
+    """All proteins through :func:`family_pass` with each path's scorer
+    ({path: DeviceFamilyScorer}) in the engine's cache, in turns (the
+    order reversed every other round, after a pass of each that also
+    holds their answers equal), synced.  The engine's own scorer is back
+    in its cache after.  Returns ({path: [seconds]}, the first path's
+    answers as BestMatch objects)."""
+    import torch
+    own = eng._family_scorers.get(mapping)
+    answers = None
+    for name, sc in paths.items():
+        use_scorer(eng, mapping, sc)
+        got = list(family_pass(eng, mapping, offsets, lengths))
+        check(answers is None or got == answers,
+              f"family best matches on the {name} path differ")
+        answers = answers or got
+    names = list(paths)
+    spent = {k: [] for k in names}
+    for r in range(rounds):
+        for name in names if r % 2 == 0 else names[::-1]:
+            use_scorer(eng, mapping, paths[name])
+            torch.cuda.synchronize()
+            t0 = time.time()
+            family_pass(eng, mapping, offsets, lengths)
+            torch.cuda.synchronize()
+            spent[name].append(time.time() - t0)
+    eng._family_scorers[mapping] = own
+    return spent, answers
+
+
+def median(xs) -> float:
+    return float(np.median(xs))
+
+
+def packs_equal(TF, scorers: dict, offsets, lengths, params,
+                label: str) -> dict:
+    """The fused family program (score_family_packed, the slim calls and
+    the global rollup pack, at the first scorer's sticky caps) on each of
+    ``scorers`` ({path: scorer}) over every BATCH chunk: the packs equal
+    between paths on every chunk and parse without overflow.  Returns
+    each path's seconds (upload to packs, synced; the second of two
+    rounds)."""
     import torch
     from close_kmers_tpu_torch.core.device_score import DeviceScorer
-    dfs = eng._device_family_scorer(mapping)
-    check(dfs is not None and dfs.famwide is not None,
-          "the auto gate did not take the famwide path")
-    eng.best_family_matches_padded(offsets[:BATCH], lengths[:BATCH],
-                                   mapping)                  # warm-up
-    passes = []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t0 = time.time()
-        ms = eng.best_family_matches_padded(offsets, lengths, mapping)
-        passes.append(time.time() - t0)
-    dt = sorted(passes)[1]
-    placed = sum(1 for m in ms if m.gfam_id)
-    check(len(ms) == N_QUERY and placed > N_QUERY // 2,
-          f"only {placed} of {len(ms)} proteins placed in a family")
-    log(f"phase 4: family best-match (famwide): {N_QUERY} proteins, "
-        f"{placed} placed; passes {passes} s; median {dt:.4f} s = "
-        f"{N_QUERY / dt:.0f} proteins/s")
-
-    tg = TF.DeviceFamilyScorer(eng.db, mapping, device, ddb=eng.fa.ddb,
-                               famwide=False)
-    ccap, gps = dfs.bm_calls_per_seq, dfs.bm_groups_per_seq
-    fold_calls, fold_rows = dfs.pack_flags(offsets.shape[1])
+    first = next(iter(scorers.values()))
+    ccap, gps = first.bm_calls_per_seq, first.bm_groups_per_seq
+    fold_calls, fold_rows = first.pack_flags(offsets.shape[1])
     unpack = (DeviceScorer.unpack_dense2 if fold_calls
               else DeviceScorer.unpack_dense3)
-    spent = {"famwide": 0.0, "two-gather": 0.0}
-    for _ in range(2):                   # the first round warms both
-        spent = dict.fromkeys(spent, 0.0)
-        for a in range(0, N_QUERY, BATCH):
+    for _ in range(2):                   # the first round warms each path
+        spent = dict.fromkeys(scorers, 0.0)
+        for a in range(0, len(offsets), BATCH):
             c_off, c_len = offsets[a:a + BATCH], lengths[a:a + BATCH]
             packs = {}
-            for name, sc in (("famwide", dfs), ("two-gather", tg)):
+            for name, sc in scorers.items():
                 torch.cuda.synchronize()
                 t0 = time.time()
                 calls, call_cap, rows, _, id_check = sc.score_family_packed(
@@ -1351,23 +1482,97 @@ def phase_family(TF, eng, mapping, offsets, lengths, params, device):
                 spent[name] += time.time() - t0
                 packs[name] = (calls.cpu(), rows.cpu())
                 id_check.raise_if_bad()
-            (fc, fr), (gc, gr) = packs["famwide"], packs["two-gather"]
-            check(torch.equal(fc, gc) and torch.equal(fr, gr),
-                  f"famwide and two-gather packs differ at chunk {a}")
+            (fc, fr), *rest = packs.values()
+            check(all(torch.equal(fc, c) and torch.equal(fr, r)
+                      for c, r in rest),
+                  f"{label}: the {' and '.join(scorers)} packs differ at "
+                  f"chunk {a}")
             check(unpack(fc.numpy(), BATCH, call_cap) is not None
                   and TF.DeviceFamilyScorer.finish_rollup_global(
                       fr.numpy(), BATCH, gps * BATCH, folded=fold_rows)
-                  is not None, f"packs overflowed at chunk {a}")
+                  is not None, f"{label}: packs overflowed at chunk {a}")
+    return spent
+
+
+def family_kernel_turns(T, fw, tg, off_d, len_d, flush, label: str) -> dict:
+    """famwide against two-gather by kernel on one BATCH of ``off_d``:
+    famwide_select on ``fw``'s famwide rows, and probe_search on ``tg``'s
+    binary-search tables followed by row_gather on its family table (the
+    ids probe_search gives), each by launch alone, in turns, L2 flushed
+    (ms).  The two paths' family rows must be equal."""
+    import torch
+    from close_kmers_tpu_torch.ops import probe_search as PSr
+    from close_kmers_tpu_torch.ops import probe_select as PS
+    from close_kmers_tpu_torch.ops import row_gather as RG
+    hi, lo, valid = (x.reshape(-1) for x in T.encode_windows(off_d, len_d))
+    ddb = tg.ddb
+    check(ddb.tier == "binary_search", f"{label}: the two-gather path "
+          f"probes through {ddb.tier}")
+    fargs = (hi, lo, valid, fw.famwide, fw.fam_w, fw.fam_d, T.FUSED_LO_BITS)
+    fw_out = PS.famwide_outputs(hi.numel(), fw.fam_d, hi.device)
+    sargs = (hi, lo, valid, ddb.bucket_pair, ddb.lo, ddb.payload, ddb.n,
+             ddb.n_steps)
+    s_out = PSr.search_outputs(hi.shape, hi.device)
+    rows = ddb.search_rows
+    PSr._launch(*sargs, s_out, rows)
+    idx = s_out[5]
+    table = tg.fdb.fam
+    g_out = torch.empty((idx.numel(), table.shape[1]), dtype=torch.int32,
+                        device=hi.device)
+    g_bad = torch.empty(1, dtype=torch.int32, device=hi.device)
+    RG._launch(table, idx, g_out, g_bad)
+    PS._launch_famwide(*fargs, fw_out)
+    torch.cuda.synchronize()
+    check(int(g_bad[0]) == 0 and torch.equal(fw_out[3], g_out),
+          f"{label}: famwide and two-gather family rows differ")
+
+    def two_gather():
+        PSr._launch(*sargs, s_out, rows)
+        RG._launch(table, idx, g_out, g_bad)
+
+    turns = cuda_ms_cold_turns({
+        "famwide_select": lambda: PS._launch_famwide(*fargs, fw_out),
+        "probe_search + row_gather": two_gather,
+        "probe_search": lambda: PSr._launch(*sargs, s_out, rows),
+        "row_gather": lambda: RG._launch(table, idx, g_out, g_bad)},
+        20, flush)
+    log(f"{label}: by launch, in turns, L2 flushed, {hi.numel()} windows "
+        f"(ms): " + ", ".join(f"{k} {v:.4f}" for k, v in turns.items()))
+    return turns
+
+
+def phase_family(TF, eng, mapping, other, offsets, lengths, params, card):
+    """Phase 4, family: all queries through best_family_matches_padded on
+    the engine's own path (the card gate's pick) and on ``other`` (the
+    other path's scorer) in interleaved rounds, the fused programs' packs
+    equal on every chunk, and a sample against the host path."""
+    dfs = eng._device_family_scorer(mapping)
+    want_fw = TF.DeviceFamilyDB.card_famwide(eng.db, dfs.fdb.d)
+    check((dfs.famwide is not None) == want_fw,
+          "the card gate's family path is not the engine's")
+    own = "famwide" if want_fw else "two-gather"
+    paths = {own: dfs, ("two-gather" if want_fw else "famwide"): other}
+    spent, ms = family_rounds(eng, mapping, paths, offsets, lengths)
+    rates = {k: N_QUERY / median(v) for k, v in spent.items()}
+    placed = sum(1 for m in ms if m.gfam_id)
+    check(len(ms) == N_QUERY and placed > N_QUERY // 2,
+          f"only {placed} of {len(ms)} proteins placed in a family")
+    log(f"phase 4: family best-match: {N_QUERY} proteins, {placed} placed; "
+        f"the engine's path {own}; proteins/s (median of 3, interleaved) "
+        f"{json.dumps({k: round(v) for k, v in rates.items()})}; passes "
+        f"(s) {json.dumps(spent)}; {card}")
+    fused = packs_equal(TF, paths, offsets, lengths, params, "family cell")
     log(f"phase 4: famwide and two-gather packs equal on all "
         f"{N_QUERY // BATCH} chunks; fused program (upload to packs, "
-        f"synced) per {N_QUERY}: famwide {spent['famwide']:.4f} s, "
-        f"two-gather {spent['two-gather']:.4f} s")
+        f"synced) per {N_QUERY}: "
+        + ", ".join(f"{k} {v:.4f} s" for k, v in fused.items()))
 
     eng.device_family = False
     try:
         t0 = time.time()
         want = eng.best_family_matches_padded(offsets[:SAMPLE],
-                                              lengths[:SAMPLE], mapping)
+                                              lengths[:SAMPLE], mapping,
+                                              genus_filter=False)
     finally:
         eng.device_family = True
     check(want == ms[:SAMPLE],
@@ -1375,7 +1580,7 @@ def phase_family(TF, eng, mapping, offsets, lengths, params, device):
     log(f"phase 4: {SAMPLE}-protein family sample equals the host path "
         f"(native.family_scores + find_best_family_match, "
         f"{time.time() - t0:.1f} s)")
-    return N_QUERY / dt, spent
+    return rates[own], spent
 
 
 def make_reads(host, eng, offsets):
@@ -2289,7 +2494,7 @@ SHARD_MESHES = ((1, 4), (2, 2))
 # families a protein's rollup row holds: up to 11 on the first 4,096
 # query proteins, past serve_step_sharded's default of 8
 SHARD_CAP = 32
-SHARD_KERNELS = ("probe_select", "scan_score", "row_gather", "family_group",
+SHARD_KERNELS = ("probe_search", "scan_score", "row_gather", "family_group",
                  "best_call")
 DEEP_SHARD_CHUNKS = 4
 
@@ -2438,10 +2643,10 @@ def phase_sharded(TF, ds, eng, dfs, dbf, offsets, lengths, params, ds_deep,
         sdb = se.sdb
         fam_sh = SH.shard_fam_table(fam_np, sdb)
         torch.cuda.synchronize()
-        check(sdb.payload_wide is not None,
-              f"the {shape} shards did not take payload-wide rows")
+        check(all(d.tier == "binary_search" for d in sdb.local.values()),
+              f"the {shape} shards did not take the binary search")
         log(f"phase 4 sharded {shape}: {sdb.n_shards} shards of <= {sdb.m:,}"
-            f" rows, payload-wide {sdb.payload_wide.shape}, family rows "
+            f" rows, each on the binary search, family rows "
             f"{fam_sh.shape}, built and placed in {time.time() - t0:.1f} s")
         for routed in (True, False):
             mode = "routed" if routed else "replicated"
@@ -2543,10 +2748,11 @@ def phase_sharded(TF, ds, eng, dfs, dbf, offsets, lengths, params, ds_deep,
 
     mesh = SH.make_mesh(1, 4, devices=[dev0] * 4)
     t0 = time.time()
-    sdb = SH.ShardedDB.from_db(db_deep, mesh)
+    sdb = SH.ShardedDB.from_db(db_deep, mesh, jax_layouts=True)
     torch.cuda.synchronize()
     check(sdb.sub_blocks is not None and sdb.payload_wide is None,
-          "the deep DB's shards did not take sub blocks")
+          "the deep DB's shards did not take sub blocks under the JAX "
+          "module's gates")
     log(f"phase 4 sharded deep (1, 4): sub blocks {sdb.sub_blocks.shape} "
         f"(sub_w {sdb.sub_w}), header {sdb.sub_header.shape}, built and "
         f"placed in {time.time() - t0:.1f} s")
@@ -2668,7 +2874,8 @@ SCALE_SPELL_POOL = 4_000_000
 # what a plain tier's probe holds above its table, a multiple of one
 # gathered row a window (the row, the match plane, the int32 one-hot)
 PLAIN_PEAK_ROWS = {"fused_wide": 3.5, "lo_wide": 2.5}
-SCALE_KERNELS = ("probe_search", "scan_score", "best_call")
+SCALE_KERNELS = ("probe_search", "scan_score", "best_call", "row_gather",
+                 "family_group")
 # the largest tables a tier sweep builds (besides the picks it is given):
 # --sweep-cap in GB sets it
 SWEEP_MAX_BYTES = 16 << 30
@@ -3056,15 +3263,136 @@ def scale_e2e(host, T, db, ds_card, ds_jax, offsets, lengths, params,
     return dict(rates, passes=spent)
 
 
+def host_peak_bytes() -> int:
+    """This process's peak resident set so far (getrusage's ru_maxrss, in
+    KiB on Linux), in bytes."""
+    import resource
+    return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+
+
+def scale_family(T, TF, db, offsets, lengths, params, flush, card: str,
+                 label: str) -> dict:
+    """The family phase on a scale DB: make_scale_db.scale_mapping over
+    ``db`` (the JAX scale serve's universe), ``KmerEngine(db, card)``
+    with the default device_family_min, whose gates must send the
+    mapping to the device family program; all proteins through
+    best_family_matches_padded (the /lookup?find_best_match=1 path, to
+    arrays, genus filter off) in rounds, one pass profiled (the card's
+    busy share), a SAMPLE equal to the host path (the same engine with
+    device_family off: compact hits, native.family_scores,
+    find_best_family_match).  Where the DB's buckets allow famwide rows
+    (the uniform DB) the other path is forced beside the engine's:
+    rounds interleaved, the packs equal on every chunk, and famwide
+    against two-gather by kernel.  Records the build seconds, the family
+    table's bytes, peak device memory and the process's peak host RSS."""
+    import torch
+    from close_kmers_tpu_torch.core.api import KmerEngine
+    from close_kmers_tpu_torch.core.engine import FUSED_BUCKET_MAX
+    from close_kmers_tpu_torch.scripts.make_scale_db import scale_mapping
+    dev = flush.device
+    t0 = time.time()
+    mapping = scale_mapping(db)
+    t_map = time.time() - t0
+    t0 = time.time()
+    eng = KmerEngine(db, dev)
+    torch.cuda.synchronize()
+    t_eng = time.time() - t0
+    gate = eng.family_gate(mapping)
+    check(gate is None, f"scale {label}: the device family path was "
+          f"refused: {gate}")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    dfs = eng._device_family_scorer(mapping)
+    torch.cuda.synchronize()
+    t_scorer = time.time() - t0
+    check(dfs is not None, f"scale {label}: no device family scorer")
+    own = "two-gather" if dfs.famwide is None else "famwide"
+    table_b = nbytes(dfs.fdb.fam) + (nbytes(dfs.famwide)
+                                     if dfs.famwide is not None else 0)
+    log(f"scale {label} family: scale_mapping {t_map:.1f} s "
+        f"({len(mapping.families):,} families, D {dfs.fdb.d}), KmerEngine "
+        f"{t_eng:.1f} s, the engine's scorer ({own}) {t_scorer:.1f} s: "
+        f"{json.dumps({k: round(v, 2) for k, v in dfs.build_seconds.items()})}"
+        f"; family tables {table_b} B; the engine's gates pass "
+        f"(device_family_min {eng.device_family_min})")
+    paths = {own: dfs}
+    rec = dict(map_s=t_map, engine_s=t_eng, scorer_s=t_scorer,
+               build_s=dfs.build_seconds, table_bytes=table_b, path=own)
+    other = None
+    if TF.DeviceFamilyDB.famwide_packs(db) \
+            and db.max_bucket <= FUSED_BUCKET_MAX:
+        t0 = time.time()
+        other = TF.DeviceFamilyScorer(db, mapping, dev, ddb=eng.fa.ddb,
+                                      famwide=dfs.famwide is None)
+        torch.cuda.synchronize()
+        name = "famwide" if other.famwide is not None else "two-gather"
+        paths[name] = other
+        rec["forced"] = dict(path=name, s=time.time() - t0,
+                             build_s=other.build_seconds,
+                             table_bytes=nbytes(other.famwide)
+                             if other.famwide is not None else 0)
+        log(f"scale {label} family: the {name} path forced beside it in "
+            f"{rec['forced']['s']:.1f} s "
+            f"({json.dumps({k: round(v, 2) for k, v in other.build_seconds.items()})}"
+            f"; {rec['forced']['table_bytes']} B of famwide rows)")
+    spent, ms = family_rounds(eng, mapping, paths, offsets, lengths)
+    rates = {k: len(offsets) / median(v) for k, v in spent.items()}
+    placed = sum(1 for m in ms if m.gfam_id)
+    check(placed > len(ms) // 2, f"scale {label}: only {placed} of "
+          f"{len(ms)} proteins placed")
+    if other is not None:
+        rec["fused_s"] = packs_equal(TF, paths, offsets, lengths, params,
+                                     f"scale {label}")
+        off_d = torch.from_numpy(offsets[:BATCH]).to(dev)
+        len_d = torch.from_numpy(lengths[:BATCH]).to(dev)
+        fw, tg = ((dfs, other) if own == "famwide" else (other, dfs))
+        rec["kernels"] = family_kernel_turns(
+            T, fw, tg, off_d, len_d, flush, f"scale {label} family")
+    prof = device_share(lambda: family_pass(eng, mapping, offsets, lengths))
+    eng.device_family = False
+    try:
+        t0 = time.time()
+        want = eng.best_family_matches_padded(offsets[:SAMPLE],
+                                              lengths[:SAMPLE], mapping,
+                                              genus_filter=False)
+        t_host = time.time() - t0
+    finally:
+        eng.device_family = True
+    check(want == ms[:SAMPLE], f"scale {label}: family best matches differ "
+          f"from the host path on the sample")
+    peak = torch.cuda.max_memory_allocated()
+    rec.update(rates=rates, passes=spent, placed=placed, profile=prof,
+               peak_device_bytes=peak, resident_bytes=eng.fa.ddb.table_bytes()
+               + table_b, peak_host_bytes=host_peak_bytes(),
+               host_sample_s=t_host)
+    log(f"scale {label} family: {len(ms)} proteins, {placed} placed; "
+        f"proteins/s (median of 3, interleaved) "
+        f"{json.dumps({k: round(v) for k, v in rates.items()})}; passes (s) "
+        f"{json.dumps(spent)}"
+        + (f"; packs equal on every chunk, fused program per pass (s) "
+           f"{json.dumps(rec['fused_s'])}" if other is not None else "")
+        + f"; one pass profiled: wall {prof['wall_ms']:.1f} ms, card busy "
+        f"{prof['busy_ms']} ms, top {json.dumps(prof['top'])}; "
+        f"{SAMPLE}-protein sample equal to the host path ({t_host:.1f} s); "
+        f"peak device memory {peak} B (tables {rec['resident_bytes']} B), "
+        f"the process's peak host RSS so far {rec['peak_host_bytes']} B; "
+        f"{card}")
+    del eng, dfs, other, paths, mapping
+    torch.cuda.empty_cache()
+    return rec
+
+
 def phase_scale(host, T, n_keys: int, which, params, flush, card: str):
     """The scale phase: for each scale DB of ``which`` (SCALE_DBS names),
     ``n_keys`` keys made on the card by make_scale_db.scale_db, its
     statistics and each gate set's pick; probe_search against its plain
     version and numpy searchsorted on 1,245,184 windows (BATCH spelled
     proteins); every tier that fits timed on the same windows; the
-    65,536-protein best-call pass on the port's pick and the JAX pick.
+    65,536-protein best-call pass on the port's pick and the JAX pick;
+    then, its tables freed, the family phase (:func:`scale_family`).
     Returns {label: results}."""
     import torch
+    from close_kmers_tpu_torch.core import device_family as TF
     from close_kmers_tpu_torch.scripts.make_scale_db import scale_db
     dev = flush.device
     out = {}
@@ -3116,11 +3444,14 @@ def phase_scale(host, T, n_keys: int, which, params, flush, card: str):
         e2e = scale_e2e(host, T, db, DeviceScorer(db, dev, keep[pick]),
                         DeviceScorer(db, dev, keep[jpick]), offsets, lengths,
                         params, card, label)
+        del keep, ddb_bin, want, flat, off_b, len_b
+        torch.cuda.empty_cache()
+        fam = scale_family(T, TF, db, offsets, lengths, params, flush, card,
+                           label)
         out[label] = dict(keys=len(db), stats=dataclasses.asdict(st),
                           card_tier=pick, jax_tier=jpick, tiers=tiers,
-                          e2e=e2e, probe_search=rec)
-        del db, keep, ddb_bin, want, flat, off_b, len_b
-        torch.cuda.empty_cache()
+                          e2e=e2e, probe_search=rec, family=fam)
+        del db
     return out
 
 
@@ -3280,6 +3611,22 @@ def run_scale(host, T, wrappers, n_keys: int, which, params, device,
     return scale, big, counts
 
 
+def family_summary(fam: dict) -> dict:
+    """The scale family phase's record without its passes and profile's
+    top names: proteins/s, build seconds, bytes, peaks, busy share."""
+    prof = fam["profile"]
+    return dict(
+        path=fam["path"], proteins_s={k: round(v) for k, v in
+                                      fam["rates"].items()},
+        map_s=fam["map_s"], engine_s=fam["engine_s"],
+        build_s=fam["build_s"], table_bytes=fam["table_bytes"],
+        forced=fam.get("forced"), kernels=fam.get("kernels"),
+        peak_device_bytes=fam["peak_device_bytes"],
+        peak_host_bytes=fam["peak_host_bytes"],
+        busy_share=(prof["busy_ms"] / prof["wall_ms"]
+                    if prof["busy_ms"] is not None else None))
+
+
 def scale_record(scale: dict, big: dict) -> dict:
     """probe_search's kernel record: the skewed scale DB's numbers (the
     DB the port's ladder sends to the binary search), the other DBs' and
@@ -3311,10 +3658,217 @@ def scale_only(host, T, wrappers, args, params, device, kind: str,
         + json.dumps({k: dict(stats=v["stats"], card_tier=v["card_tier"],
                               jax_tier=v["jax_tier"],
                               e2e={t: round(r) for t, r in v["e2e"].items()
-                                   if t != "passes"})
+                                   if t != "passes"},
+                              family=family_summary(v["family"]))
                       for k, v in scale.items()}))
     print(json.dumps({"kernels": [dict(scale_record(scale, big),
                                        launches=counts["probe_search"])]}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+# the family and routed budgets' sweeps (--budgets): rows a chunk and
+# chunks in flight of best_family_matches_padded, and the routed probe's
+# capacity factor (None: a device's full window count, drop-free)
+FAMILY_CHUNK_ROWS = (4096, 8192, 16384, 65536)
+FAMILY_IN_FLIGHT = (2, 4, 8)
+CAPACITY_FACTORS = (2.0, 4.0, 8.0, None)
+
+
+def chunk_sweep(eng, mapping, offsets, lengths, card: str, label: str,
+                rounds: int = 3) -> dict:
+    """All proteins through :func:`family_pass` at each FAMILY_CHUNK_ROWS
+    x FAMILY_IN_FLIGHT setting (the engine's ``_chunk_rows`` and
+    FAMILY_MATCH_GROUP set on the instance), in turns, the order reversed
+    every other round, after a pass of each.  Returns {"rows x in
+    flight": [seconds]} and the engine's own setting."""
+    import torch
+    own = (eng._chunk_rows(len(offsets), offsets.shape[1]),
+           eng.FAMILY_MATCH_GROUP)
+    settings = [(r, g) for r in FAMILY_CHUNK_ROWS for g in FAMILY_IN_FLIGHT]
+
+    def run(r, g):
+        eng._chunk_rows = lambda B0, L: r
+        eng.FAMILY_MATCH_GROUP = g
+        try:
+            family_pass(eng, mapping, offsets, lengths)
+        finally:
+            del eng._chunk_rows, eng.FAMILY_MATCH_GROUP
+
+    for r, g in settings:
+        run(r, g)
+    spent = {f"{r} x {g}": [] for r, g in settings}
+    for k in range(rounds):
+        for r, g in settings if k % 2 == 0 else settings[::-1]:
+            torch.cuda.synchronize()
+            t0 = time.time()
+            run(r, g)
+            torch.cuda.synchronize()
+            spent[f"{r} x {g}"].append(time.time() - t0)
+    log(f"{label} chunk sweep ({len(offsets)} proteins, the engine's own "
+        f"{own[0]} x {own[1]}; median s of {rounds}, interleaved): "
+        + json.dumps({k: round(median(v), 4) for k, v in spent.items()})
+        + f"; passes {json.dumps(spent)}; {card}")
+    return dict(own=f"{own[0]} x {own[1]}", passes=spent)
+
+
+def family_budgets(T, TF, eng, mapping, offsets, lengths, params, flush,
+                   card: str, label: str) -> dict:
+    """famwide against two-gather on one DB: both scorers (forced, the
+    engine's table shared), all proteins through :func:`family_pass` in
+    eleven interleaved rounds, the packs equal on every chunk, the
+    kernels by launch (:func:`family_kernel_turns`); then the chunk sweep
+    on the two-gather path."""
+    import torch
+    dev = flush.device
+    t0 = time.time()
+    paths = {name: TF.DeviceFamilyScorer(eng.db, mapping, dev,
+                                         ddb=eng.fa.ddb, famwide=fw)
+             for name, fw in (("famwide", True), ("two-gather", False))}
+    torch.cuda.synchronize()
+    check(paths["famwide"].famwide is not None,
+          f"{label}: no famwide rows")
+    log(f"{label} budgets: both family scorers built in "
+        f"{time.time() - t0:.1f} s (famwide rows "
+        f"{tuple(paths['famwide'].famwide.shape)})")
+    spent, _ = family_rounds(eng, mapping, paths, offsets, lengths,
+                             rounds=11)
+    log(f"{label} budgets: famwide against two-gather end to end "
+        f"({len(offsets)} proteins, median s of 11, interleaved): "
+        + json.dumps({k: round(median(v), 4) for k, v in spent.items()})
+        + f"; passes {json.dumps(spent)}; {card}")
+    fused = packs_equal(TF, paths, offsets, lengths, params, label)
+    off_d = torch.from_numpy(offsets[:BATCH]).to(dev)
+    len_d = torch.from_numpy(lengths[:BATCH]).to(dev)
+    turns = family_kernel_turns(T, paths["famwide"], paths["two-gather"],
+                                off_d, len_d, flush, f"{label} budgets")
+    use_scorer(eng, mapping, paths["two-gather"])
+    sweep = chunk_sweep(eng, mapping, offsets, lengths, card, label)
+    eng._family_scorers.pop(mapping, None)
+    del paths
+    torch.cuda.empty_cache()
+    return dict(e2e=spent, fused_s=fused, kernels=turns, chunks=sweep)
+
+
+def sharded_budgets(SH, db, offsets, lengths, params, dev, card: str,
+                    label: str) -> dict:
+    """The routed and per-shard budgets on one DB over mesh (1, 4) on
+    [cuda:0] * 4, all proteins in BATCH chunks through serve_step_sharded
+    (no family rows): the card's layout (every shard on the binary
+    search) against the JAX module's per-shard layouts where they differ,
+    replicated and routed drop-free, in interleaved rounds, the best
+    packs equal; then on the card's layout the routed step at each of
+    CAPACITY_FACTORS: its dropped windows and seconds a pass.  ``dev``:
+    the one device of the four entries."""
+    import torch
+    mesh = SH.make_mesh(1, 4, devices=[dev] * 4)
+    chunks = [(np.ascontiguousarray(offsets[a:a + BATCH]),
+               np.ascontiguousarray(lengths[a:a + BATCH]))
+              for a in range(0, len(offsets), BATCH)]
+    t0 = time.time()
+    sdbs = {"card": SH.ShardedDB.from_db(db, mesh)}
+    jx = SH.ShardedDB.from_db(db, mesh, jax_layouts=True)
+    tiers = {k: sorted({d.tier for d in v.local.values()})
+             for k, v in (("card", sdbs["card"]), ("jax", jx))}
+    if tiers["jax"] != tiers["card"]:
+        sdbs["jax"] = jx
+    del jx
+    torch.cuda.synchronize()
+    log(f"{label} sharded budgets: shards built in {time.time() - t0:.1f} s;"
+        f" per-shard tiers {json.dumps(tiers)}")
+
+    def step(sdb, routed, cf):
+        def run():
+            out = [SH.serve_step_sharded(sdb, o, n, params=params,
+                                         routed=routed, capacity_factor=cf)
+                   for o, n in chunks]
+            return ([b.cpu() for b, _, _ in out],
+                    sum(int(d.sum()) for _, _, d in out))
+        return run
+
+    want, _ = step(sdbs["card"], False, None)()
+    runs = {f"{k} {mode}": step(v, mode == "routed", None)
+            for k, v in sdbs.items() for mode in ("replicated", "routed")}
+    runs.update({f"card routed cf {cf}": step(sdbs["card"], True, cf)
+                 for cf in CAPACITY_FACTORS if cf is not None})
+    drops = {}
+    for name, fn in runs.items():
+        got, drops[name] = fn()
+        if not drops[name]:
+            check(all(torch.equal(a, b) for a, b in zip(got, want)),
+                  f"{label}: {name} best packs differ")
+    names = list(runs)
+    spent = {k: [] for k in names}
+    for r in range(3):
+        for name in names if r % 2 == 0 else names[::-1]:
+            torch.cuda.synchronize()
+            t0 = time.time()
+            runs[name]()
+            torch.cuda.synchronize()
+            spent[name].append(time.time() - t0)
+    log(f"{label} sharded budgets ({len(offsets)} proteins, mesh (1, 4) on "
+        f"card 0; median s of 3, interleaved): "
+        + json.dumps({k: round(median(v), 4) for k, v in spent.items()})
+        + f"; windows dropped a pass {json.dumps(drops)}; passes "
+        f"{json.dumps(spent)}; {card}")
+    del sdbs, runs
+    torch.cuda.empty_cache()
+    return dict(tiers=tiers, passes=spent, drops=drops)
+
+
+def budgets(host, T, TF, params, device, kind: str, card: str,
+            t_start: float) -> int:
+    """``--budgets``: the measurements the family and routed budgets rest
+    on, alone.  The query cell (bench.py's corpus and family universe)
+    and the uniform scale DB with its scale_mapping: famwide against
+    two-gather end to end and by kernel, and the chunk sweep
+    (:func:`family_budgets`); the query DB, the deep DB and the skewed
+    scale DB: the per-shard tiers and the capacity sweep
+    (:func:`sharded_budgets`).  Prints one JSON record of it all, the
+    nvidia-smi line and the device line."""
+    import torch
+    from close_kmers_tpu_torch.core.api import KmerEngine
+    from close_kmers_tpu_torch.parallel import sharding as SH
+    from close_kmers_tpu_torch.scripts import gather_exp as GX
+    from close_kmers_tpu_torch.scripts.make_scale_db import (scale_db,
+                                                             scale_mapping)
+    flush = torch.empty(64 << 20, dtype=torch.int32, device=device)
+    out = {}
+    db, offsets, lengths, src_rng = build_corpus(host)
+    dbf, mapping = make_family_universe(host, db, src_rng)
+    eng = KmerEngine(dbf, device)
+    out["query family"] = family_budgets(T, TF, eng, mapping, offsets,
+                                         lengths, params, flush, card,
+                                         "query cell")
+    del eng, mapping
+    dev0 = torch.device("cuda", 0)
+    out["query sharded"] = sharded_budgets(SH, dbf, offsets, lengths, params,
+                                           dev0, card, "query DB")
+    del db, dbf
+    db_deep = GX.deep_db()
+    d_off, d_len = spelled_queries(db_deep, N_QUERY, np.random.default_rng(5))
+    out["deep sharded"] = sharded_budgets(SH, db_deep, d_off, d_len, params,
+                                          dev0, card, "deep DB")
+    del db_deep
+    for label, aa_bias, seed in SCALE_DBS:
+        db = scale_db(SCALE_KEYS, aa_bias=aa_bias, seed=seed, device=device)
+        s_off, s_len = scale_spelled(db, N_QUERY, seed)
+        if label == "uniform":
+            eng = KmerEngine(db, device)
+            out["uniform family"] = family_budgets(
+                T, TF, eng, scale_mapping(db), s_off, s_len, params, flush,
+                card, "uniform 210M")
+            del eng
+        else:
+            out[f"{label} sharded"] = sharded_budgets(
+                SH, db, s_off, s_len, params, dev0, card, f"{label} 210M")
+        del db
+        torch.cuda.empty_cache()
+    log(f"budgets measured in {time.time() - t_start:.1f} s")
+    print(json.dumps({"budgets": out}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
@@ -3494,6 +4048,9 @@ def parse_args(argv: list[str]):
                          "alone, ROUNDS rounds in turns (see tier_e2e)")
     ap.add_argument("--port-root", default=None, metavar="DIR",
                     help="with --tier-e2e: import the port from DIR")
+    ap.add_argument("--budgets", action="store_true",
+                    help="run phase 1 and the family and routed budgets' "
+                         "measurements alone (see budgets)")
     args = ap.parse_args(argv)
     if args.port_root is not None and args.tier_e2e is None:
         ap.error("--port-root goes with --tier-e2e")
@@ -3586,6 +4143,8 @@ def main(argv: list[str]) -> int:
     SEARCH_TREES.update({k: kernel_tree(v, k, "probe_search")
                          for k, v in trees.items()})
     params = host.EngineParams()
+    if args.budgets:
+        return budgets(host, T, TF, params, device, kind, card, t_start)
     if args.scale_only is not None:
         return scale_only(host, T, wrappers, args, params, device, kind,
                           card, t_start)
@@ -3608,11 +4167,21 @@ def main(argv: list[str]) -> int:
     t0 = time.time()
     dfs = eng._device_family_scorer(mapping)
     torch.cuda.synchronize()
-    check(dfs is not None and dfs.famwide is not None,
-          "no famwide family scorer for the full-width corpus")
-    log(f"set-up: family table {tuple(dfs.fdb.fam.shape)} and famwide rows "
-        f"{tuple(dfs.famwide.shape)} (W={dfs.fam_w}, D={dfs.fam_d}) built "
-        f"and uploaded in {time.time() - t0:.1f} s")
+    check(dfs is not None, "no device family scorer for the full-width "
+          "corpus")
+    # the other path's scorer beside the engine's: famwide rows forced
+    # where the card gate takes the two gathers, and the other way round
+    other = TF.DeviceFamilyScorer(dbf, mapping, device, ddb=eng.fa.ddb,
+                                  famwide=dfs.famwide is None)
+    dfs_fw, dfs_tg = (dfs, other) if dfs.famwide is not None \
+        else (other, dfs)
+    torch.cuda.synchronize()
+    log(f"set-up: family table {tuple(dfs.fdb.fam.shape)} (the engine's "
+        f"path: {'famwide' if dfs is dfs_fw else 'two-gather'}, "
+        f"{json.dumps({k: round(v, 2) for k, v in dfs.build_seconds.items()})}"
+        f" s) and famwide rows {tuple(dfs_fw.famwide.shape)} "
+        f"(W={dfs_fw.fam_w}, D={dfs_fw.fam_d}) built and uploaded in "
+        f"{time.time() - t0:.1f} s")
     t0 = time.time()
     db_deep = GX.deep_db()
     t1 = time.time()
@@ -3656,8 +4225,10 @@ def main(argv: list[str]) -> int:
         scan_calls(T, S, ds_deep.ddb, d_off_b, d_len_b, params), compare)
     del pw
     reads, n_orfs, fq_chunk = make_reads(host, eng, offsets)
-    kernels.update(phase_family_kernels(T, TF, dfs, off_d, len_d, fq_chunk,
-                                        flush))
+    kernels.update(phase_family_kernels(T, TF, dfs_fw, off_d, len_d,
+                                        fq_chunk, flush))
+    kernels["famwide_select"]["turns"] = family_kernel_turns(
+        T, dfs_fw, dfs_tg, off_d, len_d, flush, "query cell family")
     kernels["probe_select"]["sub_blocks"] = phase_sub_select(
         T, sub_deep, d_off_b, d_len_b, flush)
     # probe_search at the main path's shapes: the query cell, the deep
@@ -3701,6 +4272,7 @@ def main(argv: list[str]) -> int:
     # -- phase 3: golden server on the card
     phase_golden(device)
     log("phase 3: golden conversations byte-identical on the card")
+    phase_kser_profile()
 
     # -- phase 4: real size
     rate_ds, rate_eng, best_q = phase_query(host, T, ds, eng, db, offsets,
@@ -3708,8 +4280,8 @@ def main(argv: list[str]) -> int:
     n_over = phase_overflow(host, T, ds, db, offsets, lengths, params)
     phase_tpu_engine(host, T, TFam, db, dbf, mapping, offsets, lengths,
                      params, device)
-    rate_fam, _spent = phase_family(TF, eng, mapping, offsets, lengths,
-                                    params, device)
+    rate_fam, _spent = phase_family(TF, eng, mapping, other, offsets,
+                                    lengths, params, card)
     rate_reads, rate_orfs = phase_reads(eng, mapping, reads, n_orfs, params)
     gen = phase_genome(host, T, TG, eng, db, genome, params)
     mat = phase_matrix(host, TM, eng, db, offsets, lengths, src_rng)
@@ -3755,7 +4327,7 @@ def main(argv: list[str]) -> int:
 
     # -- the scale path, its counts set to 0 just before it and read just
     # after
-    del ds, eng, dfs, mapping
+    del ds, eng, dfs, dfs_fw, dfs_tg, other, mapping
     torch.cuda.empty_cache()
     scale, big, scale_counts = run_scale(
         host, T, wrappers, args.scale_keys,
@@ -3801,7 +4373,7 @@ def main(argv: list[str]) -> int:
         f"kept {kept} kmers; sharded step proteins/s "
         f"{json.dumps({str(k): {n: round(r) for n, r in v.items()} for k, v in shard['rates'].items()})}"
         f" ({shard['nccl']} one-rank group equal); scale DBs "
-        f"{json.dumps({k: dict(keys=v['keys'], card_tier=v['card_tier'], jax_tier=v['jax_tier'], proteins_s={t: round(r) for t, r in v['e2e'].items() if t != 'passes'}) for k, v in scale.items()})}"
+        f"{json.dumps({k: dict(keys=v['keys'], card_tier=v['card_tier'], jax_tier=v['jax_tier'], proteins_s={t: round(r) for t, r in v['e2e'].items() if t != 'passes'}, family_proteins_s={t: round(r) for t, r in v['family']['rates'].items()}) for k, v in scale.items()})}"
         f"; peak {peak} B on {card}")
 
     # launches: the main path's own; the sharded and scale paths' beside

@@ -13,7 +13,13 @@
 * ``--shards N`` range-shards the DB over a 1 x N mesh (the first N
   cards; N entries on one device with ``--device cuda:0`` or ``--device
   cpu``), and ``--routed-probe`` routes each window to its owning shard
-  (``parallel/sharding.py``).
+  (``parallel/sharding.py``);
+* ``--torch-profile-dir DIR`` records a torch.profiler trace of the
+  serving process (CPU activity, and the card's kernels and copies on
+  ``cuda``) from the listener's start to its shutdown, written into DIR
+  as a Chrome trace whose path goes to stderr: the counterpart of the
+  JAX CLI's ``--jax-profile-dir`` and of the reference's gperftools hook
+  (kser.cc:19-21).
 
 The JAX-only options of the JAX CLI are refused: ``--jax-profile-dir``
 and the XLA compile cache (``CLOSE_KMERS_JAX_CACHE``).
@@ -244,6 +250,11 @@ def main(argv=None):
                     help="with --shards: route windows to their owning "
                          "shard with one all_to_all per direction instead "
                          "of the replicated psum-merge probe")
+    ap.add_argument("--torch-profile-dir", default=None, metavar="DIR",
+                    help="record a torch.profiler trace of the serving "
+                         "process into DIR (a Chrome trace, written at "
+                         "shutdown; the gperftools hook's analogue, "
+                         "kser.cc:19-21)")
     # a JAX-only option of the JAX CLI: parsed so that it can be refused
     ap.add_argument("--jax-profile-dir", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
@@ -300,7 +311,32 @@ def main(argv=None):
         warmup_context(ctx)
 
     from ..server.http import serve
+    if args.torch_profile_dir:
+        return serve_profiled(ctx, port, args.listen_port_file,
+                              args.torch_profile_dir, device)
     asyncio.run(serve(ctx, port=port, port_file=args.listen_port_file))
+    return 0
+
+
+def serve_profiled(ctx, port: int, port_file, out_dir: str, device) -> int:
+    """``serve`` under torch.profiler (CPU activity, and CUDA on a card);
+    on shutdown, however it comes (SIGINT included), the trace goes to
+    ``out_dir``/kser_<pid>.pt.trace.json and its path to stderr."""
+    from torch.profiler import ProfilerActivity, profile
+    from ..server.http import serve
+    acts = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, f"kser_{os.getpid()}.pt.trace.json")
+    prof = profile(activities=acts)
+    prof.start()
+    try:
+        asyncio.run(serve(ctx, port=port, port_file=port_file))
+    finally:
+        prof.stop()
+        prof.export_chrome_trace(path)
+        print(f"torch profiler trace written to {path}", file=sys.stderr)
     return 0
 
 

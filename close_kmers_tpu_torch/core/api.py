@@ -29,6 +29,7 @@ paths, as in the reference, since both read a single-device table.
 from __future__ import annotations
 
 import collections
+import logging
 import os
 import weakref
 
@@ -39,10 +40,12 @@ from ..db.signature_db import SignatureDB
 from ..native import api as native
 from ..params import EngineParams
 from . import family as F, oracle as O
-from .device_family import DeviceFamilyScorer
+from .device_family import DeviceFamilyScorer, fan_out
 from .device_score import DeviceScorer
 from .engine import FastAnnotator, finish_best_call
 from .matrix import DeviceMatrix
+
+_log = logging.getLogger(__name__)
 
 
 class AnnotationResult:
@@ -105,8 +108,10 @@ class KmerEngine:
         self.device_family_min = device_family_min \
             if device_family_min is not None else int(os.environ.get(
                 "CLOSE_KMERS_DEVICE_FAMILY_MIN", 50_000))
-        # mapping -> (the fam CSR it was built from, scorer or None)
+        # mapping -> (the fam CSR it was built from, its scorer)
         self._family_scorers = weakref.WeakKeyDictionary()
+        # mapping -> (the fam CSR, the family table's byte gate on it)
+        self._table_gates = weakref.WeakKeyDictionary()
         # mapping -> its /matrix DeviceMatrix (core/matrix.py)
         self._device_matrices = weakref.WeakKeyDictionary()
 
@@ -184,27 +189,58 @@ class KmerEngine:
 
     # -- family-mode lookup (calls + family scores in one device pass) ------
 
-    DEVICE_FAMILY_MAX_D = 32   # dense fam-table fan-out bound (memory)
+    # Bytes of the dense [N+1, D] family table the device program may
+    # hold, derived for one 80 GB H100 at PATRIC's 1e9 point (PERF.md §6,
+    # "fan-out bound"): the card's 85.0 GB less the 970,978,247-key DB's
+    # probe tables (19.5 GB), four chunks' working set (4 x 2.8 GB) and a
+    # tenth held back (8.5 GB) leaves 45.8 GB; 40 GiB of it admits D <= 11
+    # at 971M keys.  The JAX package bounds D alone (DEVICE_FAMILY_MAX_D
+    # = 32, a v5e memory bound).
+    FAMILY_TABLE_MAX_BYTES = 40 << 30
+
+    def family_gate(self, mapping) -> str | None:
+        """Which gate keeps ``mapping`` off the device family program, or
+        None when the program serves it: the engine's own switch, a
+        sharded engine (its family path is the host's), a mapping below
+        ``device_family_min`` keys, or a dense family table past
+        FAMILY_TABLE_MAX_BYTES.  It reads the mapping's CSR offsets (once
+        per CSR) and builds nothing."""
+        if not self.device_family:
+            return "device_family is off"
+        if getattr(self.fa, "ddb", None) is None:
+            return "a sharded engine"
+        csr = mapping.fam_csr()
+        if len(csr[0]) < self.device_family_min:
+            return (f"device_family_min: {len(csr[0])} mapped kmers, fewer "
+                    f"than {self.device_family_min}")
+        cached = self._table_gates.get(mapping)
+        if cached is None or cached[0] is not csr:
+            table = (len(self.db) + 1) * fan_out(mapping) * 4
+            gate = None if table <= self.FAMILY_TABLE_MAX_BYTES else (
+                f"FAMILY_TABLE_MAX_BYTES: a {table}-byte family table, "
+                f"more than {self.FAMILY_TABLE_MAX_BYTES}")
+            if gate is not None:
+                _log.warning("family lookups take the host path: %s", gate)
+            cached = self._table_gates[mapping] = (csr, gate)
+        return cached[1]
 
     def _device_family_scorer(self, mapping):
         """DeviceFamilyScorer for ``mapping``, cached per engine and
         rebuilt when the mapping's CSR is (every add_fam_mapping clears
-        it).  None when the device path does not apply: a sharded
-        engine, disabled, mapping too small to justify the family table
-        upload, or per-kmer family fan-out too large to densify."""
-        if not self.device_family or getattr(self.fa, "ddb", None) is None:
+        it).  None when a gate (:meth:`family_gate`, logged) sends the
+        mapping to the host path; nothing is densified or uploaded
+        before the gates pass."""
+        gate = self.family_gate(mapping)
+        if gate is not None:
+            _log.info("family lookups take the host path: %s", gate)
             return None
         csr = mapping.fam_csr()
-        if len(csr[0]) < self.device_family_min:
-            return None
         cached = self._family_scorers.get(mapping)
         if cached is not None and cached[0] is csr:
             return cached[1]
-        # famwide=None: the JAX auto gate for the folded single-read rows
+        # famwide=None: the port's auto gate for the folded single-read rows
         dfs = DeviceFamilyScorer(self.db, mapping, self.fa.device,
                                  ddb=self.fa.ddb, famwide=None)
-        if dfs.fdb.d > self.DEVICE_FAMILY_MAX_D:
-            dfs = None
         self._family_scorers[mapping] = (csr, dfs)
         return dfs
 
@@ -313,15 +349,21 @@ class KmerEngine:
     FAMILY_MATCH_GROUP = int(os.environ.get(
         "CLOSE_KMERS_FAMILY_GROUP", 4))   # chunks in flight at most
 
+    # Windows a chunk of best_family_matches_padded holds: 65,536 rows at
+    # L = 312, the chunk that beat the JAX sizing's 4,096 rows (~1.5M
+    # windows) by more than the rounds' spread on the query cell and the
+    # uniform 210M-key DB (PERF.md §6, "family chunk"; one H100).
+    FAMILY_CHUNK_WINDOWS = 65_536 * 304
+
     def _chunk_rows(self, B0: int, L: int) -> int:
-        """Rows per dispatch of best_family_matches_padded, sized as the
-        JAX engine sizes them: ~1.5M windows per chunk (at least
-        FAMILY_MATCH_CHUNK, at most 65536, a power of two), or the whole
-        request rounded up to a power of two (at least 256) when it is
-        smaller."""
+        """Rows per dispatch of best_family_matches_padded: up to
+        FAMILY_CHUNK_WINDOWS windows a chunk (at least FAMILY_MATCH_CHUNK
+        rows, at most 65536, a power of two), or the whole request
+        rounded up to a power of two (at least 256) when it is smaller.
+        The JAX engine sizes chunks at ~1.5M windows."""
         W = max(1, L - 8)
-        CH = min(65536, max(self.FAMILY_MATCH_CHUNK,
-                            1 << max(1, (1_500_000 // W).bit_length() - 1)))
+        CH = min(65536, max(self.FAMILY_MATCH_CHUNK, 1 << max(
+            1, (self.FAMILY_CHUNK_WINDOWS // W).bit_length() - 1)))
         return CH if B0 > CH else max(256, 1 << max(B0 - 1, 0).bit_length())
 
     def best_family_matches_padded(self, offsets, lengths, mapping,

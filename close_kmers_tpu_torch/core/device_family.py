@@ -34,6 +34,7 @@ row-local sort and scan are ``ops.family_group``),
 from __future__ import annotations
 
 import dataclasses
+import time
 
 import numpy as np
 import torch
@@ -56,70 +57,132 @@ ROW_FOLD_SHIFT = 16
 ROW_FIT_BITS = 15
 
 
+# CSR keys a block of the family table's host builds (fan_out,
+# DeviceFamilyDB._dense_fam): bounds their numpy temporaries
+CSR_BLOCK = 1 << 24
+
+
+def fan_out(mapping) -> int:
+    """D of ``mapping``'s dense family table: the most families one kmer
+    maps to (at least 1), read from its CSR offsets alone."""
+    offs = mapping.fam_csr()[1]
+    d = 1
+    for a in range(0, len(offs) - 1, CSR_BLOCK):
+        seg = offs[a:a + CSR_BLOCK + 1]
+        d = max(d, int((seg[1:] - seg[:-1]).max()))
+    return d
+
+
 @dataclasses.dataclass
 class DeviceFamilyDB:
     fam: torch.Tensor   # i32[N+1, D] family ids, -1 padded
     d: int
 
-    # Gates of the folded famwide table, kept equal to the JAX package's
-    # so that both packages pick the same path on every DB.  They are TPU
-    # v5e budgets (HBM bytes, scale), not measured for the card.
+    # The JAX package's gates of the folded famwide table (TPU v5e
+    # budgets: HBM bytes, scale), kept as the oracle of its choice
+    # (:meth:`jax_famwide`), which tests hold against the JAX package.
     FAMWIDE_MAX_BYTES = 3 << 30
     FAMWIDE_MAX_D = 8
     FAMWIDE_MIN_KEYS = 1_000_000
 
-    # Copied from close_kmers_tpu/core/device_family.py (pure numpy).
     @classmethod
     def _dense_fam(cls, db: SignatureDB, mapping):
-        """[N+1, D] densified per-DB-row family lists (-1 padded)."""
+        """[N+1, D] densified per-DB-row family lists (-1 padded): the JAX
+        package's table (device_family.py:66-83), built in blocks of
+        CSR_BLOCK mapping keys; where the mapping's keys are the DB's
+        own (a family universe over every key), each key's row is its
+        index and no search runs."""
         keys, offs, vals = mapping.fam_csr()
         n = len(db)
-        rows = np.searchsorted(db.keys, keys)
-        ok = (rows < n) & (db.keys[np.minimum(rows, n - 1)] == keys) \
-            if n else np.zeros(len(keys), bool)
-        counts = (offs[1:] - offs[:-1])
-        D = int(counts.max()) if len(counts) else 1
-        D = max(D, 1)
+        D = fan_out(mapping)
         fam = np.full((n + 1, D), -1, dtype=np.int32)
-        for j in range(D):
-            m = ok & (counts > j)
-            fam[rows[m], j] = vals[offs[:-1][m] + j]
+        same = len(keys) == n and (keys is db.keys
+                                   or np.array_equal(keys, db.keys))
+        last = max(len(vals) - 1, 0)
+        for a in range(0, len(keys), CSR_BLOCK):
+            b = min(len(keys), a + CSR_BLOCK)
+            start = offs[a:b]
+            c = offs[a + 1:b + 1] - start
+            if same:
+                # row i is key i: column j gathers each key's j-th family
+                # (a forward read of vals), -1 past the key's degree
+                for j in range(D):
+                    col = np.take(vals, np.minimum(start + j, last)) \
+                        if len(vals) else np.zeros(b - a, np.int32)
+                    fam[a:b, j] = np.where(c > j, col, -1)
+                continue
+            rows = np.searchsorted(db.keys, keys[a:b])
+            ok = (rows < n) & (db.keys[np.minimum(rows, n - 1)]
+                               == keys[a:b]) if n else np.zeros(b - a, bool)
+            for j in range(D):
+                m = ok & (c > j)
+                fam[rows[m], j] = vals[start[m] + j]
         return fam, D
 
     @classmethod
     def from_mapping(cls, db: SignatureDB, mapping,
                      device) -> "DeviceFamilyDB":
         fam, D = cls._dense_fam(db, mapping)
-        return cls.from_numpy(fam, device)
+        return cls.from_numpy(fam, device, copy=False)
 
     @classmethod
-    def from_numpy(cls, fam, device) -> "DeviceFamilyDB":
+    def from_numpy(cls, fam, device, copy: bool = True) -> "DeviceFamilyDB":
         """State carry-over: the JAX ``DeviceFamilyDB.fam`` array (or any
-        [N+1, D] int32 family table) onto ``device``."""
-        fam = np.array(fam, dtype=np.int32)   # own, writable copy
+        [N+1, D] int32 family table) onto ``device``.  ``copy=False``
+        hands an int32 array over: a CPU tensor then shares its memory."""
+        fam = np.array(fam, dtype=np.int32) if copy \
+            else np.ascontiguousarray(fam, dtype=np.int32)
         return cls(torch.from_numpy(fam).to(resolve_device(device)),
                    fam.shape[1])
+
+    @staticmethod
+    def famwide_row_w(db: SignatureDB, D: int) -> int:
+        """Ints of one famwide row: (2 + D) planes of the deepest bucket's
+        width, lane-padded to a multiple of 128."""
+        W = max(1, int(db.max_bucket))
+        return -(-((2 + D) * W) // 128) * 128
+
+    @staticmethod
+    def famwide_packs(db: SignatureDB) -> bool:
+        """Whether ``db`` can have famwide rows at all: keys, and every
+        function index narrow enough to pack beside a lo code."""
+        return len(db) > 0 and \
+            int(db.fi.max()) < (1 << (31 - FUSED_LO_BITS))
+
+    @classmethod
+    def jax_famwide(cls, db: SignatureDB, D: int) -> bool:
+        """The JAX package's auto gate (device_family.py:109-121) for a
+        mapping of fan-out ``D`` over ``db``: the oracle of its choice."""
+        return (cls.famwide_packs(db) and D <= cls.FAMWIDE_MAX_D
+                and 0 < db.max_bucket <= FUSED_BUCKET_MAX
+                and len(db) >= cls.FAMWIDE_MIN_KEYS
+                and db.n_hi * cls.famwide_row_w(db, D) * 4
+                <= cls.FAMWIDE_MAX_BYTES)
+
+    @classmethod
+    def card_famwide(cls, db: SignatureDB, D: int) -> bool:
+        """The port's auto gate: whether the family program builds famwide
+        rows for a mapping of fan-out ``D`` over ``db`` by itself.  Never
+        on one H100 (PERF.md §6, "famwide gate"): the two gathers
+        (probe_search, then row_gather) were no slower end to end on the
+        query cell and on the uniform 210M-key DB and faster by kernel
+        (1.18x and 2.0x), and they need no table beside the probe's.
+        ``famwide=True`` still builds the rows."""
+        return False
 
     @classmethod
     def _famwide_table(cls, db: SignatureDB, fam: np.ndarray, D: int,
                        force: bool | None):
         """The numpy half of :meth:`famwide_from_mapping` (JAX
         device_family.py:93-148), given the dense family table."""
-        if force is False:
+        if force is False or not cls.famwide_packs(db):
+            return None
+        if force is None and not cls.card_famwide(db, D):
             return None
         n = len(db)
-        if not n:
-            return None
-        if int(db.fi.max()) >= (1 << (31 - FUSED_LO_BITS)):
-            return None                      # fi won't pack beside lo
         H = db.n_hi
         W = max(1, int(db.max_bucket))
-        row_w = -(-((2 + D) * W) // 128) * 128
-        if force is None and (D > cls.FAMWIDE_MAX_D
-                              or W > FUSED_BUCKET_MAX
-                              or n < cls.FAMWIDE_MIN_KEYS
-                              or H * row_w * 4 > cls.FAMWIDE_MAX_BYTES):
-            return None
+        row_w = cls.famwide_row_w(db, D)
         tab = np.zeros((H, row_w), dtype=np.int32)
         tab[:, :W] = FUSED_SENTINEL          # packed-plane sentinel
         rank = np.arange(n, dtype=np.int64) \
@@ -288,11 +351,20 @@ class DeviceFamilyScorer:
                  famwide: bool | None = False):
         """``ddb``: share an existing DeviceDB (e.g. the serving engine's)
         instead of uploading the signature table again.  ``famwide``:
-        the folded single-read family rows; True forces them (tests),
-        None applies the JAX auto gate, False disables them."""
+        the folded single-read family rows; True forces them (tests,
+        measurements), None applies the port's auto gate
+        (:meth:`DeviceFamilyDB.card_famwide`), False disables them;
+        ``DeviceFamilyDB.jax_famwide(db, fan_out(mapping))`` gives the
+        JAX package's choice.  ``build_seconds`` keeps the host seconds
+        of the dense table, the famwide rows and the upload."""
+        t0 = time.perf_counter()
         fam, D = DeviceFamilyDB._dense_fam(db, mapping)
-        self._setup(db, device, ddb, fam,
-                    DeviceFamilyDB._famwide_table(db, fam, D, famwide))
+        t1 = time.perf_counter()
+        fw = DeviceFamilyDB._famwide_table(db, fam, D, famwide)
+        t2 = time.perf_counter()
+        self._setup(db, device, ddb, fam, fw)
+        self.build_seconds = dict(dense_fam=t1 - t0, famwide=t2 - t1,
+                                  upload=time.perf_counter() - t2)
 
     @classmethod
     def from_numpy(cls, db: SignatureDB, fields: dict, device,
@@ -300,7 +372,7 @@ class DeviceFamilyScorer:
         """State carry-over from the JAX ``DeviceFamilyScorer``:
         ``fields`` holds ``fam`` (its ``fdb.fam`` as numpy), ``famwide``
         (numpy, or None) and ``fam_w``."""
-        fam = np.asarray(fields["fam"], dtype=np.int32)
+        fam = np.array(fields["fam"], dtype=np.int32)     # own copy
         fw = fields.get("famwide")
         fw = None if fw is None else (np.array(fw, dtype=np.int32),
                                       int(fields["fam_w"]), fam.shape[1])
@@ -313,7 +385,7 @@ class DeviceFamilyScorer:
         self.device = resolve_device(device)
         self.ddb = ddb if ddb is not None else DeviceDB.from_db(db,
                                                                 self.device)
-        self.fdb = DeviceFamilyDB.from_numpy(fam, self.device)
+        self.fdb = DeviceFamilyDB.from_numpy(fam, self.device, copy=False)
         self.famwide, self.fam_w, self.fam_d = (None, 0, 0) if fw is None \
             else (torch.from_numpy(np.ascontiguousarray(fw[0])).to(
                 self.device), fw[1], fw[2])

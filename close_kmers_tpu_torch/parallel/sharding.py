@@ -6,8 +6,9 @@ The design is the JAX module's:
 
 * batch rows are data-parallel over ``data``; the DB's sorted key space
   is split into contiguous **bucket-aligned hi ranges** over ``table``,
-  so that each shard keeps the single-device layouts (payload-wide rows,
-  sub-bucket blocks, or the binary search) over its own hi span;
+  so that each shard keeps a single-device layout over its own hi span:
+  the binary search, the card's tier, or under the JAX module's gates
+  its payload-wide rows or sub-bucket blocks;
 * the replicated probe: each entry probes its data row's batch against
   its table shard; every key lives in exactly one shard, so a ``psum``
   over ``table`` of the zero-masked payloads merges the shards;
@@ -287,11 +288,14 @@ class Sharded:
 class ShardedDB:
     """Signature DB split into ``S`` contiguous bucket-aligned key ranges,
     padded to equal length M, as [S, ...] arrays sharded over "table".
-    Where the single-device engine would take the payload-wide layout,
-    each shard carries its own wide rows over just its hi range ([S,
-    Hmax, 1+5W], local-hi indexed via ``hi_base``); where buckets are too
-    deep for wide rows, its own sub-bucket blocks (local hi and local row
-    ids); else it binary-searches its local rows."""
+    Each shard binary-searches its local rows (the card's tier,
+    ``engine.CARD_TIER``).  Under the JAX module's per-shard gates
+    (:meth:`from_db` with ``jax_layouts`` or ``wide_payload``), where the
+    single-device JAX engine would take the payload-wide layout, each
+    shard carries its own wide rows over just its hi range ([S, Hmax,
+    1+5W], local-hi indexed via ``hi_base``); where buckets are too deep
+    for wide rows, its own sub-bucket blocks (local hi and local row
+    ids); else the binary search."""
 
     bucket_pair: Sharded     # i32[S, HI_CARD, 2] (bounds into local rows)
     lo: Sharded              # i32[S, M+1]
@@ -333,7 +337,16 @@ class ShardedDB:
     # (the numpy table build), then placed on the mesh.
     @classmethod
     def from_db(cls, db: SignatureDB, mesh: Mesh,
-                wide_payload: bool | None = None) -> "ShardedDB":
+                wide_payload: bool | None = None,
+                jax_layouts: bool = False) -> "ShardedDB":
+        """``db`` range-sharded over ``mesh``'s table axis.  With no flags
+        every shard takes the binary search, the card's tier (PERF.md §6,
+        "per-shard tier"; the single card's ``CARD_TIER``).
+        ``jax_layouts=True`` builds the JAX module's per-shard choice
+        (payload-wide rows, else sub-bucket blocks, else the binary
+        search, under its v5e gates), and ``wide_payload`` forces its
+        wide rows on or off within that choice; the tables then equal
+        the JAX ``ShardedDB``'s."""
         S = mesh.shape["table"]
         n = len(db)
         bs = db.bucket_start
@@ -343,7 +356,10 @@ class ShardedDB:
         Hmax = max(1, int(np.max(h_bounds[1:] - h_bounds[:-1])))
 
         WIDE = max(1, int(db.max_bucket))
-        if wide_payload is None:
+        jax_layouts = jax_layouts or wide_payload is not None
+        if not jax_layouts:
+            wide_payload = False
+        elif wide_payload is None:
             wide_payload = (
                 n > 0 and 0 < db.max_bucket <= E.WIDE_BUCKET_MAX
                 and S * Hmax * (1 + 5 * WIDE) * 4
@@ -393,7 +409,7 @@ class ShardedDB:
 
         sub_h = sub_b = None
         sub_w = 0
-        if pw is None and n:
+        if jax_layouts and pw is None and n:
             sub_h, sub_b, sub_w = cls._build_sub(db, S, h_bounds, row_base,
                                                  Hmax)
         return cls.from_numpy(dict(
@@ -798,8 +814,16 @@ class ShardedEngine:
     FastAnnotator.probe_compact, batch sharded over "data".
 
     ``routed=True`` probes through the exchange path (:func:`probe_routed`)
-    instead of the replicated psum merge, and re-dispatches with larger
-    capacities when the default one drops windows."""
+    instead of the replicated psum merge at capacity factor
+    ROUTED_CAPACITY, and re-dispatches with larger capacities when that
+    one drops windows."""
+
+    # The first rung of the routed probe's capacity ladder (JAX: 2.0, the
+    # default of probe_routed and _routing_caps): on one H100 factor 2
+    # dropped 4,436,962 windows a 65,536-protein pass on the deep DB and
+    # 4 none, and 4 was no slower on the query, deep and skewed 210M-key
+    # DBs (PERF.md §6, "capacity sweep").
+    ROUTED_CAPACITY = 4.0
 
     def __init__(self, db: SignatureDB, mesh: Mesh | None = None,
                  routed: bool = False):
@@ -853,7 +877,8 @@ class ShardedEngine:
                      np.full((Bq - Bp, offsets.shape[1]), 20, np.uint8)])
                 lengths = np.concatenate(
                     [lengths, np.zeros(Bq - Bp, np.int32)])
-            out = probe_routed(self.sdb, offsets, lengths)
+            out = probe_routed(self.sdb, offsets, lengths,
+                               capacity_factor=self.ROUTED_CAPACITY)
             # the drop counts are the whole mesh's (every process holds
             # the global vector), so every process takes the same branch
             if int(out[8].sum()):

@@ -27,6 +27,10 @@ point):
   for 2.1e8 keys on a card), with a random function of ``n_funcs``, an
   average offset and a weight per key.  The numbers depend on the seed
   and on the device's generator.
+
+:func:`scale_mapping` lays the JAX scale serve's family universe
+(scripts/scale_1e9_serve.py: 1-3 families a key, derived from its lo
+code and function) over such a DB, for the family path at scale.
 """
 
 from __future__ import annotations
@@ -41,6 +45,7 @@ import time
 import numpy as np
 import torch
 
+from ..db.family_db import FamilyData, KmerFamilyMapping
 from ..db.signature_db import SignatureDB
 from ..params import K, LO_CARD
 from ..utils.device import resolve_device
@@ -216,6 +221,46 @@ def scale_db(n_keys: int, aa_bias: bool = False, n_funcs: int = N_FUNCS,
         np.full(n_keys, -1, dtype=np.int32), avg_off.cpu().numpy(),
         wt.cpu().numpy(),
         functions=[f"Synthetic function {i}" for i in range(n_funcs)])
+
+
+# keys a block of scale_mapping's CSR build: bounds its numpy temporaries
+MAPPING_BLOCK = 1 << 24
+
+
+def scale_mapping(db: SignatureDB) -> KmerFamilyMapping:
+    """The family universe of scripts/scale_1e9_serve.py over ``db``: key
+    k of lo code ``lo`` and function ``fi`` maps to the 1 + lo % 3
+    families fi * 3 + j (j below its degree), and family f is
+    ``FamilyData("PGF_%08d" % f, "PLF_{f % 5}_%08d" % f, f % 5, the DB's
+    function f // 3, f, 10, 10)``, 3 x len(db.functions) families in all.
+    Its kmer->family CSR is built straight from ``db.keys`` (sorted and
+    distinct, so they are the CSR's keys) in blocks of MAPPING_BLOCK
+    keys, and handed to the mapping as its bulk CSR, as ``load_nr``
+    leaves it."""
+    n = len(db)
+    offs = np.zeros(n + 1, dtype=np.int64)
+    for a in range(0, n, MAPPING_BLOCK):
+        b = min(n, a + MAPPING_BLOCK)
+        np.cumsum(1 + db.lo[a:b] % 3, out=offs[a + 1:b + 1])
+        offs[a + 1:b + 1] += offs[a]
+    vals = np.empty(int(offs[-1]), dtype=np.int32)
+    j3 = np.arange(3, dtype=np.int32)
+    for a in range(0, n, MAPPING_BLOCK):
+        b = min(n, a + MAPPING_BLOCK)
+        # each key's three candidates fi * 3 + j, the first 1 + lo % 3
+        # kept, compressed in key order: the CSR values of keys [a, b)
+        cand = db.fi[a:b, None] * 3 + j3
+        keep = j3 < (1 + db.lo[a:b] % 3)[:, None]
+        vals[offs[a]:offs[b]] = cand[keep]
+    mapping = KmerFamilyMapping()
+    fns = db.functions
+    mapping.families = [
+        FamilyData(f"PGF_{f:08d}", f"PLF_{f % 5}_{f:08d}", f % 5,
+                   fns[f // 3] if f // 3 < len(fns) else f"fn{f // 3}", f,
+                   10, 10)
+        for f in range(3 * len(fns))]
+    mapping._bulk_fam = (db.keys, offs, vals)
+    return mapping
 
 
 if __name__ == "__main__":

@@ -7,9 +7,10 @@ port of ``scripts/multiproc_worker.py``.
 Each process joins a gloo process group of ``world`` ranks on the CPU
 (rendezvous at 127.0.0.1:<port>), takes its entry of the (n_data,
 world / n_data) mesh, and runs over two DB shapes, a shallow-bucket one
-(payload-wide shard rows) and a deep-bucket one (sub-bucket shard
-blocks), or with ``--midsize`` over a 10M-key one with uneven hi
-occupancy:
+and a deep-bucket one, or with ``--midsize`` over a 10M-key one with
+uneven hi occupancy, each on the card's per-shard layout (the binary
+search) and on the JAX module's (payload-wide shard rows on the shallow
+DB, sub-bucket shard blocks on the deep one):
 
 * ``probe_sharded`` against the single-device probe (``TpuEngine``);
 * ``serve_step_sharded``, replicated and routed, with family rows,
@@ -106,7 +107,8 @@ def _same(a, b) -> bool:
     return a.shape == b.shape and torch.equal(a, b)
 
 
-def run_case(rank, mesh, mesh_local, db, rng, label: str) -> str:
+def run_case(rank, mesh, mesh_local, db, rng, label: str,
+             jax_layouts: bool = False) -> str:
     from ..core.engine import FastAnnotator, TpuEngine
     from ..ops import encoder as E
     from ..params import EngineParams
@@ -132,7 +134,7 @@ def run_case(rank, mesh, mesh_local, db, rng, label: str) -> str:
     fam_np = family_table(rng, db)
 
     t0 = time.time()
-    sdb = ShardedDB.from_db(db, mesh)
+    sdb = ShardedDB.from_db(db, mesh, jax_layouts=jax_layouts)
     fam = shard_fam_table(fam_np, sdb)
     got = probe_sharded(sdb, offsets, lengths)
     t_probe = time.time() - t0
@@ -147,7 +149,7 @@ def run_case(rank, mesh, mesh_local, db, rng, label: str) -> str:
             expect(_same(rows, w[idx]), f"probe plane {j} rows {idx}")
             n_checked += 1
 
-    sdb1 = ShardedDB.from_db(db, mesh_local)
+    sdb1 = ShardedDB.from_db(db, mesh_local, jax_layouts=jax_layouts)
     fam1 = shard_fam_table(fam_np, sdb1)
     t0 = time.time()
     for routed, params in ((False, EngineParams()),
@@ -199,8 +201,9 @@ def main(argv=None) -> int:
                 rng = np.random.default_rng(seed)
                 cases.append((label, build_db(rng, deep), rng))
         for label, db, rng in cases:
-            print(run_case(rank, mesh, mesh_local, db, rng, label),
-                  flush=True)
+            for jax_layouts in (False, True):
+                print(run_case(rank, mesh, mesh_local, db, rng, label,
+                               jax_layouts), flush=True)
         print(f"rank {rank}: OK ({world} ranks, mesh {mesh.shape})",
               flush=True)
     finally:

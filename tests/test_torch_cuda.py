@@ -357,6 +357,32 @@ def test_row_gather_kernel_matches_plain(cuda, n, w):
     assert torch.equal(row_gather_plain(table, idx), got.cpu())
 
 
+@pytest.mark.parametrize("w", [3, 8])
+def test_row_gather_past_2e28_rows(cuda, w):
+    """A table of 2^28 + 1,000 rows (the 971M-key DB's family table has
+    ~2^30): ids at its end and its start give the analytic rows, at w = 8
+    with row offsets r * w past 2^31 ints."""
+    R = (1 << 28) + 1000
+    r = torch.arange(R, dtype=torch.int32, device=cuda)
+    table = torch.empty((R, w), dtype=torch.int32, device=cuda)
+    for j in range(w):
+        table[:, j] = r + j
+    del r
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(w)
+    idx = torch.cat([
+        torch.arange(R - 1, R - 4097, -1, dtype=torch.int32, device=cuda),
+        torch.randint(R - (1 << 20), R, (20000,), generator=gen,
+                      device=cuda, dtype=torch.int32),
+        torch.tensor([0, 1, R // 2], dtype=torch.int32, device=cuda)])
+    got, check = row_gather(table, idx)
+    torch.cuda.synchronize()
+    check.raise_if_bad()
+    want = idx[:, None] + torch.arange(w, dtype=torch.int32, device=cuda)
+    assert torch.equal(got, want)
+    assert torch.equal(row_gather_plain(table, idx), want)
+
+
 @pytest.mark.parametrize("bad_id", [3001, -1, 1 << 30])
 def test_row_gather_bad_id_raises_at_the_check(cuda, bad_id):
     """A bad id writes a zero row and raises IndexError at the check,
@@ -504,14 +530,16 @@ def _famwide_table(rng, H, wd, d, row_w, lo_bits=13):
     return tab, lo_plane, depth
 
 
-@pytest.mark.parametrize("wd", [1, 22, 32, 33, 64])
+@pytest.mark.parametrize("wd", [1, 22, 32, 33, 64, 108, 128])
 @pytest.mark.parametrize("n", [1, 127, 20479])
 @pytest.mark.parametrize("aligned", [True, False])
 def test_famwide_select_windows_match_plain(cuda, wd, n, aligned):
-    """The quarter-warp kernel at wd in one and two 32-slot chunks, at N
-    of one window and one short of a multiple of a block's 128 windows,
-    on rows with and without 16-B alignment (the 16-B and the 4-B loads),
-    with out-of-range hi and invalid windows."""
+    """The quarter-warp kernel at wd in one to four 32-slot chunks (108:
+    the uniform 210M-key DB's deepest bucket; 128: FUSED_BUCKET_MAX, the
+    widest famwide rows), at N of one window and one short of a multiple
+    of a block's 128 windows, on rows with and without 16-B alignment
+    (the 16-B and the 4-B loads), with out-of-range hi and invalid
+    windows."""
     rng = np.random.default_rng(wd * 1000 + n)
     H, d, lo_bits = 3000, 3, 13
     row_w = -(-(2 + d) * wd // 128) * 128 if aligned else (2 + d) * wd + 5
@@ -531,6 +559,45 @@ def test_famwide_select_windows_match_plain(cuda, wd, n, aligned):
         assert int(want[0].sum()) > n // 8
     for w_, g in zip(want, got):
         assert torch.equal(bits(w_), bits(g))
+
+
+def test_family_path_on_a_scale_mapping_matches_the_host(cuda):
+    """A seeded scale DB made on the card and its scale-rule mapping
+    (make_scale_db.scale_db, scale_mapping): best_family_matches_padded
+    on the engine's own device path and on the forced famwide rows equals
+    the host path's answers (device_family off), and the device path goes
+    through probe_search, row_gather, scan_score and family_group."""
+    from close_kmers_tpu_torch.scripts.make_scale_db import (scale_db,
+                                                             scale_mapping)
+    db = scale_db(300_000, n_funcs=100, seed=6, device=cuda)
+    mapping = scale_mapping(db)
+    rng = np.random.default_rng(6)
+    n, n_k = 1024, 12
+    fi_of = rng.integers(0, 100, size=n)
+    offsets = np.full((n, 136), 20, np.uint8)
+    pow20 = 20 ** np.arange(7, -1, -1, dtype=np.int64)
+    for b in range(n):
+        keys = db.keys[db.fi == fi_of[b]]
+        pick = keys[rng.integers(0, len(keys), size=n_k)]
+        offsets[b, :8 * n_k] = ((pick[:, None] // pow20) % 20).reshape(-1)
+        offsets[b, 8 * n_k:128] = rng.integers(0, 20, size=128 - 8 * n_k)
+    lengths = np.full(n, 128, np.int32)
+    eng = KmerEngine(db, cuda, device_family_min=0)
+    kw = dict(genus_filter=False)
+    before = [f.launches for f in (probe_search, row_gather, scan_score,
+                                   family_group)]
+    dfs = eng._device_family_scorer(mapping)
+    assert dfs is not None and dfs.fdb.d == 3
+    got = eng.best_family_matches_padded(offsets, lengths, mapping, **kw)
+    assert all(f.launches > b for f, b in zip(
+        (probe_search, row_gather, scan_score, family_group), before))
+    eng._family_scorers[mapping] = (mapping.fam_csr(), DeviceFamilyScorer(
+        db, mapping, cuda, ddb=eng.fa.ddb, famwide=True))
+    fw = eng.best_family_matches_padded(offsets, lengths, mapping, **kw)
+    eng.device_family = False
+    want = eng.best_family_matches_padded(offsets, lengths, mapping, **kw)
+    assert sum(1 for m in want if m.gfam_id) > n // 2
+    assert got == want and fw == want
 
 
 @pytest.mark.parametrize("d", [1, 8])
@@ -989,14 +1056,18 @@ def _deep_db(rng, n=8_000):
         functions=[f"fn{i}" for i in range(50)])
 
 
+@pytest.mark.parametrize("jax_layouts", [False, True])
 @pytest.mark.parametrize("deep", [False, True])
 @pytest.mark.parametrize("shape", [(1, 4), (2, 2)])
-def test_sharded_step_on_card_matches_single_card(cuda, shape, deep):
+def test_sharded_step_on_card_matches_single_card(cuda, shape, deep,
+                                                  jax_layouts):
     """The sharded serving step on a mesh of four entries on one card
     (routed and replicated, with family rows) equals the single-card
     best-call pack and rollup and the same step on four CPU entries;
     probe_routed equals probe_sharded, ShardedEngine.probe_compact equals
-    FastAnnotator's, and the five kernels of the path launch."""
+    FastAnnotator's, and the five kernels of the path launch: the shards
+    on the binary search (probe_search), or under the JAX module's gates
+    on payload-wide rows or, deep, sub blocks (probe_select)."""
     from close_kmers_tpu_torch.parallel import sharding as SH
     rng = np.random.default_rng(11)
     db = _deep_db(rng) if deep else _db(rng)[0]
@@ -1016,15 +1087,18 @@ def test_sharded_step_on_card_matches_single_card(cuda, shape, deep):
                                                           params)
     want_roll = DeviceFamilyScorer(db, mapping, "cpu").rollup(
         offsets, lengths, fams_per_seq_cap=64)
-    names = ("probe_select", "scan_score", "row_gather", "family_group",
+    probe = probe_select if jax_layouts else probe_search
+    names = (probe.__name__, "scan_score", "row_gather", "family_group",
              "best_call")
-    kernels = (probe_select, scan_score, row_gather, family_group, best_call)
+    kernels = (probe, scan_score, row_gather, family_group, best_call)
     before = [k.launches for k in kernels]
     sdb = {}
     for dev in ("cpu", cuda):
         mesh = SH.make_mesh(*shape, devices=[dev] * 4)
-        sdb[dev] = SH.ShardedDB.from_db(db, mesh)
-    assert (sdb[cuda].sub_blocks is not None) == deep
+        sdb[dev] = SH.ShardedDB.from_db(db, mesh, jax_layouts=jax_layouts)
+    assert (sdb[cuda].sub_blocks is not None) == (deep and jax_layouts)
+    assert (sdb[cuda].payload_wide is not None) == (jax_layouts
+                                                    and not deep)
     for routed in (True, False):
         outs = {dev: SH.serve_step_sharded(
             s, offsets, lengths, params=params,

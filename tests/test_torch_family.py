@@ -813,3 +813,205 @@ def test_family_path_runs_without_jax():
     p = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                        capture_output=True, text=True, timeout=300)
     assert p.returncode == 0, p.stderr
+
+
+# -- the scale universe, the famwide gates and the fan-out bound -----------
+
+def spelled_items(db, n, rng, n_k=10, tail=24):
+    """``n`` proteins, each ``n_k`` back-to-back kmers of one function of
+    ``db`` (so that calls form) then ``tail`` random residues."""
+    from close_kmers_tpu_torch.ops import encoder as E
+    items = []
+    funcs = np.unique(db.fi)
+    for i in range(n):
+        keys = db.keys[db.fi == funcs[rng.integers(0, len(funcs))]]
+        pick = keys[rng.integers(0, len(keys), size=n_k)]
+        tail_s = "".join(rng.choice(list(E.PROT_ALPHA), size=tail))
+        items.append((f"p{i}", "".join(E.decode_kmer(int(k)) for k in pick)
+                      + tail_s))
+    return items
+
+
+@pytest.fixture(scope="module")
+def scale_side():
+    """A small seeded scale DB (make_scale_db.scale_db, 40 functions), its
+    scale-rule mapping, spelled proteins, and the JAX twins."""
+    from close_kmers_tpu_torch.scripts.make_scale_db import (scale_db,
+                                                             scale_mapping)
+    db = scale_db(40_000, n_funcs=40, seed=8, device="cpu")
+    mapping = scale_mapping(db)
+    items = spelled_items(db, 48, np.random.default_rng(8))
+    return db, mapping, items, as_jax_db(db), as_jax_mapping(mapping)
+
+
+@pytest.mark.parametrize("famwide", [True, False])
+def test_scale_mapping_best_matches_match_jax(scale_side, famwide):
+    """On the scale rule's mapping, the port's best_family_matches (and
+    the padded array path) on the famwide rows and on the two-gather path
+    equal the JAX engine's over the same arrays, genus filter off as in
+    the JAX scale serve and on."""
+    db, mapping, items, jdb, jmap = scale_side
+    jeng = JaxEngine(jdb, device_family_min=0)
+    teng = KmerEngine(db, "cpu", device_family_min=0)
+    dfs = TF.DeviceFamilyScorer(db, mapping, "cpu", ddb=teng.fa.ddb,
+                                famwide=famwide)
+    assert (dfs.famwide is not None) == famwide and dfs.fdb.d == 3
+    teng._family_scorers[mapping] = (mapping.fam_csr(), dfs)
+    assert teng._device_family_scorer(mapping) is dfs
+    for kw in (dict(genus_filter=False), dict(genus_filter=True,
+                                              target_genus_id=2)):
+        want = fields(jeng.best_family_matches(items, jmap, **kw))
+        assert sum(1 for m in want if m["gfam_id"]) > len(items) // 2
+        assert fields(teng.best_family_matches(items, mapping, **kw)) == want
+    offsets, lengths = teng.fa.pad_batch([s for _, s in items])
+    got = teng.best_family_matches_padded(offsets, lengths, mapping,
+                                          genus_filter=False, as_arrays=True)
+    want = jeng.best_family_matches_padded(offsets, lengths, jmap,
+                                           genus_filter=False,
+                                           as_arrays=True)
+    assert fields([got.materialize(i) for i in range(len(got))]) == \
+        fields([want.materialize(i) for i in range(len(want))])
+
+
+def gate_db(case):
+    """A DB over 64 hi buckets and a mapping for one side of one famwide
+    gate: ``passes`` (D = 3, buckets of 4), ``few_keys`` (the key gate,
+    set just above its keys), ``fan_out`` (a kmer of 9 families),
+    ``deep`` (a bucket of 129 keys), ``bytes`` (the byte gate, set just
+    below its table) or ``wide_fi`` (a function index past 2^18)."""
+    from close_kmers_tpu_torch.db.signature_db import SignatureDB
+    rng = np.random.default_rng(5)
+    H = 64
+    keys = np.concatenate([h * 8000 + np.sort(rng.choice(8000, 129 if (
+        case == "deep" and h == 3) else 4, replace=False))
+        for h in range(H)]).astype(np.int64)
+    n = len(keys)
+    fi = rng.integers(0, 30, size=n).astype(np.int32)
+    if case == "wide_fi":
+        fi[5] = 1 << 18
+    db = SignatureDB(keys, fi, np.full(n, -1, np.int32),
+                     rng.integers(0, 200, size=n).astype(np.int32),
+                     rng.uniform(0.1, 3, size=n).astype(np.float32),
+                     functions=[f"fn{i}" for i in range(int(fi.max()) + 1)],
+                     n_hi=H)
+    mapping = KmerFamilyMapping()
+    for i, k in enumerate(keys.tolist()):
+        for j in range(9 if (case == "fan_out" and i == 7) else 1 + i % 3):
+            mapping.add_fam_mapping(int(fi[i]) * 9 + j, k)
+    gates = dict(FAMWIDE_MIN_KEYS=n + 1 if case == "few_keys" else 100,
+                 FAMWIDE_MAX_BYTES=1 << 40)
+    if case == "bytes":
+        gates["FAMWIDE_MAX_BYTES"] = \
+            H * TF.DeviceFamilyDB.famwide_row_w(db, 3) * 4 - 1
+    return db, mapping, gates
+
+
+GATE_CASES = ["passes", "few_keys", "fan_out", "deep", "bytes", "wide_fi"]
+
+
+@pytest.mark.parametrize("case", GATE_CASES)
+def test_jax_famwide_oracle_matches_jax(monkeypatch, case):
+    """``DeviceFamilyDB.jax_famwide`` says what the JAX package's auto
+    gate builds (famwide_from_mapping with force=None), on either side of
+    each of its gates (thresholds set on both packages alike), and the
+    port's famwide table under that choice equals the JAX one."""
+    db, mapping, gates = gate_db(case)
+    for k, v in gates.items():
+        monkeypatch.setattr(JF.DeviceFamilyDB, k, v)
+        monkeypatch.setattr(TF.DeviceFamilyDB, k, v)
+    jdb, jmap = as_jax_db(db), as_jax_mapping(mapping)
+    want = JF.DeviceFamilyDB.famwide_from_mapping(jdb, jmap, force=None)
+    pick = TF.DeviceFamilyDB.jax_famwide(db, TF.fan_out(mapping))
+    assert pick == (want is not None) == (case == "passes")
+    got = TF.DeviceFamilyDB.famwide_from_mapping(db, mapping, "cpu",
+                                                 force=pick)
+    assert (got is None) == (want is None)
+    if want is not None:
+        assert got[1:] == want[1:]
+        assert np.array_equal(got[0].numpy(), np.asarray(want[0]))
+
+
+def test_family_gate_reads_the_fan_out_before_densifying(setup, monkeypatch):
+    """A mapping whose dense table would pass FAMILY_TABLE_MAX_BYTES takes
+    the host path without a call to _dense_fam (it raises here), logs the
+    gate, and answers as the device path does; at the bound it builds."""
+    db, seqs, _, _, _ = setup
+    mapping = make_mapping(np.random.default_rng(12), db)
+    items = [(f"q{i}", s) for i, s in enumerate(seqs)]
+    want = fields(KmerEngine(db, "cpu", device_family_min=0)
+                  .best_family_matches(items, mapping))
+    table = (len(db) + 1) * TF.fan_out(mapping) * 4
+    assert TF.fan_out(mapping) == \
+        TF.DeviceFamilyDB._dense_fam(db, mapping)[1] > 1
+
+    def boom(*a, **kw):
+        raise AssertionError("_dense_fam ran past the bound")
+
+    teng = KmerEngine(db, "cpu", device_family_min=0)
+    teng.FAMILY_TABLE_MAX_BYTES = table - 1
+    monkeypatch.setattr(TF.DeviceFamilyDB, "_dense_fam", boom)
+    with pytest.MonkeyPatch.context() as m:
+        logged = []
+        m.setattr(TA._log, "warning", lambda *a: logged.append(a))
+        assert teng._device_family_scorer(mapping) is None
+        assert teng.family_gate(mapping).startswith("FAMILY_TABLE_MAX_BYTES")
+        assert fields(teng.best_family_matches(items, mapping)) == want
+        assert len(logged) == 1      # once per CSR
+    monkeypatch.undo()
+    teng2 = KmerEngine(db, "cpu", device_family_min=0)
+    teng2.FAMILY_TABLE_MAX_BYTES = table
+    assert teng2.family_gate(mapping) is None
+    assert teng2._device_family_scorer(mapping) is not None
+
+
+def test_fan_out_past_jax_bound_matches_jax(setup, jax_side):
+    """A kmer of 40 families (past the JAX engine's DEVICE_FAMILY_MAX_D =
+    32, which sends JAX to its host path) stays on the port's device path
+    under the byte bound, with the JAX engine's answers."""
+    db, seqs, _, _, _ = setup
+    mapping = make_mapping(np.random.default_rng(13), db)
+    for f in range(40):
+        mapping.add_fam_mapping(f, int(db.keys[3]))
+    items = [(f"q{i}", s) for i, s in enumerate(seqs)]
+    jmap = as_jax_mapping(mapping)
+    jeng = JaxEngine(jax_side[0], device_family_min=0)
+    assert jeng._device_family_scorer(jmap) is None
+    teng = KmerEngine(db, "cpu", device_family_min=0)
+    assert teng._device_family_scorer(mapping).fdb.d == 40
+    assert fields(teng.best_family_matches(items, mapping)) == \
+        fields(jeng.best_family_matches(items, jmap))
+
+
+@pytest.mark.parametrize("case", GATE_CASES)
+def test_card_famwide_gate_never_builds_by_itself(monkeypatch, case):
+    """The card's gate takes famwide rows on no DB (two gathers were no
+    slower on the card), where the JAX gate would (``passes``) and where
+    it would not; ``famwide=True`` still builds them wherever they pack,
+    and ``jax_famwide`` passed as the flag rebuilds the JAX choice."""
+    db, mapping, gates = gate_db(case)
+    for k, v in gates.items():
+        monkeypatch.setattr(TF.DeviceFamilyDB, k, v)
+    D = TF.fan_out(mapping)
+    assert not TF.DeviceFamilyDB.card_famwide(db, D)
+    assert TF.DeviceFamilyScorer(db, mapping, "cpu").famwide is None
+    assert TF.DeviceFamilyScorer(db, mapping, "cpu",
+                                 famwide=None).famwide is None
+    forced = TF.DeviceFamilyScorer(db, mapping, "cpu", famwide=True)
+    assert (forced.famwide is not None) == (case != "wide_fi")
+    jax_pick = TF.DeviceFamilyScorer(
+        db, mapping, "cpu", famwide=TF.DeviceFamilyDB.jax_famwide(db, D))
+    assert (jax_pick.famwide is not None) == (case == "passes")
+
+
+def test_chunk_rows_follow_the_card_chunk(setup):
+    """best_family_matches_padded's chunks: 65,536 rows at L = 312 (the
+    card's measured chunk; the JAX sizing gives 4,096), fewer rows for
+    longer proteins, and a small request whole, rounded up to a power of
+    two of at least 256."""
+    eng = KmerEngine(setup[0], "cpu")
+    assert eng._chunk_rows(200_000, 312) == 65_536
+    assert eng._chunk_rows(200_000, 1016) == 16_384
+    assert eng._chunk_rows(200_000, 40) == 65_536
+    assert eng._chunk_rows(65_536, 312) == 65_536
+    assert eng._chunk_rows(1000, 312) == 1024
+    assert eng._chunk_rows(3, 312) == 256

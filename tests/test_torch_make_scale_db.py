@@ -75,3 +75,26 @@ def test_scale_db_skew_deepens_buckets():
     uni_first = np.bincount(uni.keys // (20 ** 7), minlength=20) / len(uni)
     assert np.abs(uni_first - 0.05).max() < 0.01
     assert int(skew.hi.max()) < 20 ** 5 and int(skew.lo.max()) < LO_CARD
+
+
+@pytest.mark.parametrize("bias,block", [(False, 1 << 24), (True, 7_001)])
+def test_scale_mapping_csr_equals_key_by_key(monkeypatch, bias, block):
+    """scale_mapping's CSR (built in blocks of MAPPING_BLOCK keys, here
+    also in odd blocks) equals the CSR of a mapping built key by key with
+    add_fam_mapping under the JAX scale serve's rule: degree 1 + lo % 3,
+    families fi * 3 + j; its families are that script's."""
+    from close_kmers_tpu_torch.db.family_db import KmerFamilyMapping
+    monkeypatch.setattr(M, "MAPPING_BLOCK", block)
+    db = M.scale_db(30_000, aa_bias=bias, n_funcs=50, seed=4, device="cpu")
+    got = M.scale_mapping(db)
+    want = KmerFamilyMapping()
+    for k, lo, fi in zip(db.keys.tolist(), db.lo.tolist(), db.fi.tolist()):
+        for j in range(1 + lo % 3):
+            want.add_fam_mapping(fi * 3 + j, k)
+    for g, w in zip(got.fam_csr(), want.fam_csr()):
+        assert g.dtype == w.dtype and np.array_equal(g, w)
+    assert np.bincount(np.diff(got.fam_csr()[1])).tolist()[0] == 0
+    assert len(got.families) == 150
+    f = got.families[7]
+    assert (f.pgf, f.plf, f.genus_id, f.function, f.family_id) == \
+        ("PGF_00000007", "PLF_2_00000007", 2, "Synthetic function 2", 7)

@@ -52,12 +52,13 @@ def _run_ranks(world: int, extra=(), timeout=300):
 
 
 def test_two_ranks_match_one_process():
-    """Two gloo ranks, a 1 x 2 mesh, on the shallow (payload-wide shards)
-    and deep (sub-bucket shards) DBs."""
+    """Two gloo ranks, a 1 x 2 mesh, on the shallow and deep DBs, each
+    on the card's per-shard layout (the binary search) and on the JAX
+    module's (payload-wide shards, sub-bucket shards)."""
     outs = _run_ranks(2)
     for r, out in enumerate(outs):
-        assert f"rank {r} [shallow/wide]: OK" in out, out
-        assert f"rank {r} [deep/sub]: OK" in out, out
+        for case in ("shallow/bin", "deep/bin", "shallow/wide", "deep/sub"):
+            assert f"rank {r} [{case}]: OK" in out, out
         assert f"rank {r}: OK" in out, out
 
 
@@ -66,8 +67,8 @@ def test_four_ranks_two_data_rows():
     """Four gloo ranks, a 2 x 2 mesh (a process group per data row)."""
     outs = _run_ranks(4, ("--n-data", "2"), timeout=600)
     for r, out in enumerate(outs):
-        assert f"rank {r} [shallow/wide]: OK" in out, out
-        assert f"rank {r} [deep/sub]: OK" in out, out
+        for case in ("shallow/bin", "deep/bin", "shallow/wide", "deep/sub"):
+            assert f"rank {r} [{case}]: OK" in out, out
 
 
 @pytest.mark.slow

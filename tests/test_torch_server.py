@@ -338,6 +338,46 @@ def test_kser_refuses_jax_only_flags(flags):
     assert e.value.code == 2
 
 
+def test_kser_torch_profile_dir_writes_a_trace(tmp_path):
+    """kser --torch-profile-dir on the golden data dir (--device cpu):
+    the /query conversation answers the golden bytes under the profiler,
+    and after SIGINT the process has written a Chrome trace into the
+    directory and named it on stderr."""
+    import json
+    import signal
+    import time
+    port_file, out = tmp_path / "port", tmp_path / "trace"
+    env = {k: v for k, v in os.environ.items()
+           if k != "CLOSE_KMERS_JAX_CACHE"}
+    p = subprocess.Popen(
+        [sys.executable, "-m", "close_kmers_tpu_torch.cli.kser", "0", DATA,
+         "--device", "cpu", "--listen-port-file", str(port_file),
+         "--torch-profile-dir", str(out)], cwd=REPO, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        t0 = time.time()
+        while not (port_file.exists() and port_file.read_text().strip()):
+            assert p.poll() is None, p.communicate()[1][-2000:]
+            assert time.time() - t0 < 240, "kser did not start listening"
+            time.sleep(0.2)
+        with open(os.path.join(GOLDEN, "queries.fa"), "rb") as f:
+            body = f.read()
+        with open(os.path.join(GOLDEN, "query.resp"), "rb") as f:
+            want = f.read()
+        assert play(int(port_file.read_text()), CONVS["query"](body)) == want
+        p.send_signal(signal.SIGINT)
+        _, err = p.communicate(timeout=120)
+    finally:
+        if p.poll() is None:
+            p.kill()
+            p.communicate()
+    traces = list(out.iterdir())
+    assert len(traces) == 1 and traces[0].name.endswith(".pt.trace.json")
+    assert f"trace written to {traces[0]}" in err
+    events = json.loads(traces[0].read_text())["traceEvents"]
+    assert any(e.get("ph") == "X" for e in events)
+
+
 def test_kser_refuses_jax_compile_cache(monkeypatch):
     monkeypatch.setenv("CLOSE_KMERS_JAX_CACHE", "/nonexistent")
     with pytest.raises(SystemExit):

@@ -61,10 +61,12 @@ def meshes(shape):
 
 
 def sharded(corpus, shape, **kw):
+    """The JAX ShardedDB and the port's under the JAX module's per-shard
+    gates (``jax_layouts``), so that their tables compare."""
     db, jdb = corpus[:2]
     jm, tm = meshes(shape)
-    return J.ShardedDB.from_db(jdb, jm, **kw), T.ShardedDB.from_db(db, tm,
-                                                                   **kw)
+    return J.ShardedDB.from_db(jdb, jm, **kw), T.ShardedDB.from_db(
+        db, tm, jax_layouts=True, **kw)
 
 
 @pytest.fixture(scope="module")
@@ -102,6 +104,29 @@ def test_sharded_db_tables_match_jax(corpus, shape):
     parts = tsdb.payload_wide.parts
     assert len(parts) == 8 and len({id(p) for p in parts.values()}) \
         == shape[1]
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_card_layout_matches_jax_probes(corpus, deep, shape):
+    """With no flags every shard binary-searches its rows (no wide rows,
+    no sub blocks), and the replicated probe's planes equal JAX's
+    probe_sharded on its own per-shard layouts (payload-wide rows on the
+    corpus, sub blocks on the deep DB); on the routed shapes so do the
+    routed probe's nine outputs."""
+    for db, offsets, lengths in ((corpus[0], *corpus[3:]), deep):
+        jm, tm = meshes(shape)
+        jsdb = J.ShardedDB.from_db(as_jax_db(db), jm)
+        tsdb = T.ShardedDB.from_db(db, tm)
+        assert tsdb.payload_wide is None and tsdb.sub_blocks is None
+        assert (jsdb.payload_wide is not None) or (jsdb.sub_blocks
+                                                   is not None)
+        assert all(d.tier == "binary_search" for d in tsdb.local.values())
+        got = T.probe_sharded(tsdb, offsets, lengths)
+        assert int(bits(got[0]).sum()) >= 16
+        assert_planes(J.probe_sharded(jsdb, offsets, lengths), got)
+        if shape in ROUTED_SHAPES and len(offsets) % 8 == 0:
+            assert_planes(J.probe_routed(jsdb, offsets, lengths),
+                          T.probe_routed(tsdb, offsets, lengths))
 
 
 @pytest.mark.parametrize("S", [1, 2, 3, 8, 64])
@@ -209,7 +234,7 @@ def test_sharded_deep_bucket_sub_layout(deep, routed):
     db, offsets, lengths = deep
     jm, tm = meshes((2, 4))
     jsdb = J.ShardedDB.from_db(as_jax_db(db), jm)
-    tsdb = T.ShardedDB.from_db(db, tm)
+    tsdb = T.ShardedDB.from_db(db, tm, jax_layouts=True)
     assert tsdb.sub_blocks is not None and tsdb.payload_wide is None
     assert_same_db(jsdb, tsdb)
     probe = J.probe_routed if routed else J.probe_sharded
@@ -287,6 +312,38 @@ def test_routed_engine_redispatches_on_drops(corpus):
     for k in want:
         assert np.array_equal(bits(got[k]), bits(want[k])), k
         assert np.array_equal(bits(got[k]), bits(single[k])), k
+
+
+def test_routed_engine_capacity_ladder(corpus, monkeypatch):
+    """The routed engine's first rung is ROUTED_CAPACITY (the card's 4,
+    where JAX's engine starts at probe_routed's 2), then 8, then the
+    drop-free capacity: a batch that fits takes one call, one whose
+    windows pile into the first of eight shards climbs until nothing
+    drops; probe_routed's own default stays JAX's 2."""
+    import inspect
+    db = corpus[0]
+    assert inspect.signature(T.probe_routed).parameters[
+        "capacity_factor"].default == 2.0
+    tsdb = sharded(corpus, (1, 8))[1]
+    seen = []
+    orig = T.probe_routed
+
+    def spy(*a, **kw):
+        seen.append(kw.get("capacity_factor", 2.0))
+        return orig(*a, **kw)
+
+    monkeypatch.setattr(T, "probe_routed", spy)
+    eng = T.ShardedEngine(db, tsdb.mesh, routed=True)
+    assert eng.ROUTED_CAPACITY == 4.0
+    eng.probe_compact(*corpus[3:])
+    assert seen == [4.0]
+    from close_kmers_tpu_torch.ops import encoder as E
+    rng = np.random.default_rng(3)
+    seqs = ["".join(E.decode_kmer(int(k)) + "A" * 60 for k in
+                    rng.choice(db.keys, size=3)) for _ in range(16)]
+    seen.clear()
+    eng.probe_compact(*FastAnnotator.pad_batch(None, seqs))
+    assert seen[0] == 4.0 and seen[1:] in ([8.0], [8.0, None])
 
 
 def parse_rows(rows, cap):
