@@ -39,6 +39,7 @@ import torch
 from ..db.signature_db import SignatureDB
 from ..native import api as native
 from ..params import EngineParams
+from ..utils.metrics import Metrics
 from . import family as F, oracle as O
 from .device_family import DeviceFamilyScorer, fan_out
 from .device_score import DeviceScorer
@@ -114,6 +115,17 @@ class KmerEngine:
         self._table_gates = weakref.WeakKeyDictionary()
         # mapping -> its /matrix DeviceMatrix (core/matrix.py)
         self._device_matrices = weakref.WeakKeyDictionary()
+        self.metrics = Metrics()
+
+    @property
+    def metrics(self) -> Metrics:
+        """Where the engine's spans and counters go: a disabled Metrics of
+        its own, or a server's (``ServerContext`` hands over its own)."""
+        return self._metrics
+
+    @metrics.setter
+    def metrics(self, m: Metrics) -> None:
+        self._metrics = self.fa.metrics = m
 
     def annotate(self, items: list[tuple[str, str]],
                  params: EngineParams | None = None,
@@ -152,39 +164,45 @@ class KmerEngine:
             rows_only=True)   # 2-plane hit download (planes rebuild host-side)
         if Bp != B0:
             h["row_off"] = h["row_off"][:B0 + 1]
-        n_calls, cs, ce, cc, cf, cw, votes = native.score_batch(
-            h["pos"], h["fi"], h["oi"], h["avg_off"], h["wt"], h["row_off"],
-            params, max_calls_per_seq=max(64, offsets.shape[1] // 4),
-            want_votes=want_otu)
+        m = self._metrics
+        with m.span("host_score"):
+            n_calls, cs, ce, cc, cf, cw, votes = native.score_batch(
+                h["pos"], h["fi"], h["oi"], h["avg_off"], h["wt"],
+                h["row_off"], params,
+                max_calls_per_seq=max(64, offsets.shape[1] // 4),
+                want_votes=want_otu)
         if want_best:
-            nf, ofi, ocnt, owt = native.best_call_batch(
-                n_calls, cs, ce, cc, cf, cw)
-        results = []
-        for s, (sid, seq) in enumerate(items):
-            calls = [O.Call(int(cs[s, i]), int(ce[s, i]), int(cc[s, i]),
-                            int(cf[s, i]), np.float32(cw[s, i]))
-                     for i in range(int(n_calls[s]))]
-            hits = None
-            a, b = int(h["row_off"][s]), int(h["row_off"][s + 1])
-            if want_hits:
-                hits = [O.Hit(oI=int(h["oi"][k]), pos=int(h["pos"][k]),
-                              avg_off=int(h["avg_off"][k]),
-                              fI=int(h["fi"][k]), wt=float(h["wt"][k]),
-                              code=int(h["code"][k]))
-                        for k in range(a, b)]
-            otu = None
-            if want_otu:
-                otu = O.OtuStats()
-                for k in range(a, b):
-                    if votes[k]:
-                        otu.add(int(h["oi"][k]))
-                otu.finalize()
-            best = None
-            if want_best:
-                best = finish_best_call(int(nf[s]), ofi[s], ocnt[s], owt[s],
-                                        self.function_of)
-            results.append(AnnotationResult(sid, len(seq), calls, hits, otu,
-                                            best))
+            with m.span("host_score"):
+                nf, ofi, ocnt, owt = native.best_call_batch(
+                    n_calls, cs, ce, cc, cf, cw)
+        with m.span("result_objects"):
+            results = []
+            for s, (sid, seq) in enumerate(items):
+                calls = [O.Call(int(cs[s, i]), int(ce[s, i]),
+                                int(cc[s, i]), int(cf[s, i]),
+                                np.float32(cw[s, i]))
+                         for i in range(int(n_calls[s]))]
+                hits = None
+                a, b = int(h["row_off"][s]), int(h["row_off"][s + 1])
+                if want_hits:
+                    hits = [O.Hit(oI=int(h["oi"][k]), pos=int(h["pos"][k]),
+                                  avg_off=int(h["avg_off"][k]),
+                                  fI=int(h["fi"][k]), wt=float(h["wt"][k]),
+                                  code=int(h["code"][k]))
+                            for k in range(a, b)]
+                otu = None
+                if want_otu:
+                    otu = O.OtuStats()
+                    for k in range(a, b):
+                        if votes[k]:
+                            otu.add(int(h["oi"][k]))
+                    otu.finalize()
+                best = None
+                if want_best:
+                    best = finish_best_call(int(nf[s]), ofi[s], ocnt[s],
+                                            owt[s], self.function_of)
+                results.append(AnnotationResult(sid, len(seq), calls, hits,
+                                                otu, best))
         return results, h
 
     # -- family-mode lookup (calls + family scores in one device pass) ------
@@ -237,11 +255,14 @@ class KmerEngine:
         csr = mapping.fam_csr()
         cached = self._family_scorers.get(mapping)
         if cached is not None and cached[0] is csr:
-            return cached[1]
-        # famwide=None: the port's auto gate for the folded single-read rows
-        dfs = DeviceFamilyScorer(self.db, mapping, self.fa.device,
-                                 ddb=self.fa.ddb, famwide=None)
-        self._family_scorers[mapping] = (csr, dfs)
+            dfs = cached[1]
+        else:
+            # famwide=None: the port's auto gate for the folded single-read
+            # rows
+            dfs = DeviceFamilyScorer(self.db, mapping, self.fa.device,
+                                     ddb=self.fa.ddb, famwide=None)
+            self._family_scorers[mapping] = (csr, dfs)
+        dfs.metrics = self._metrics
         return dfs
 
     def annotate_family(self, items, mapping,
@@ -276,7 +297,12 @@ class KmerEngine:
         B = offsets.shape[0]
         ccap = 4
         fcap = None
+        m = self._metrics
+        rerun = 0
         while True:
+            m.count("device_passes")
+            m.count("device_reruns", rerun)
+            rerun = 1
             calls_dev, call_cap, rows_dev, capf, check = \
                 dfs.score_family_packed(offsets, lengths, params, ccap, fcap)
             calls_np, rows_np = calls_dev.cpu().numpy(), rows_dev.cpu().numpy()
@@ -293,8 +319,9 @@ class KmerEngine:
             break
         n_calls, cs, ce, cc, cf, cw = dense
         if want_best:
-            nf, ofi, ocnt, owt = native.best_call_batch(
-                n_calls, cs, ce, cc, cf, cw)
+            with m.span("host_score"):
+                nf, ofi, ocnt, owt = native.best_call_batch(
+                    n_calls, cs, ce, cc, cf, cw)
         results = []
         for s, (sid, seq) in enumerate(items):
             calls = [O.Call(int(cs[s, i]), int(ce[s, i]), int(cc[s, i]),
@@ -405,11 +432,16 @@ class KmerEngine:
         unpack_calls = DeviceScorer.unpack_dense2 if fold_calls \
             else DeviceScorer.unpack_dense3
 
-        def run(c_off, c_len):
+        m = self._metrics
+
+        def run(c_off, c_len, rerun=0):
             """One fused pass with the sticky caps; its two packs' copy
             to the host starts at once, as one transfer.  Returns (call
             cap, group cap, length of the calls pack, the readback, the
-            row gather's IdCheck)."""
+            row gather's IdCheck).  ``rerun``: 1 for a chunk's pass after
+            its first."""
+            m.count("device_passes")
+            m.count("device_reruns", rerun)
             gcap = dfs.bm_groups_per_seq * B
             calls_dev, call_cap, rows_dev, _, check = dfs.score_family_packed(
                 c_off, c_len, params, dfs.bm_calls_per_seq, -gcap,
@@ -432,7 +464,8 @@ class KmerEngine:
         def finish(chunk):
             c_off, c_len, n, (call_cap, gcap, split, rb, check) = chunk
             while True:
-                joined = rb.result()
+                with m.span("device_program"):
+                    joined = rb.result()
                 check.raise_if_bad()
                 calls_np, rows_np = joined[:split], joined[split:]
                 dense = unpack_calls(calls_np, B, call_cap)
@@ -446,19 +479,21 @@ class KmerEngine:
                 if roll is None:
                     need = -(-int(rows_np[:B].sum()) // B)
                     dfs.bm_groups_per_seq = max(gcap // B * 4, need)
-                call_cap, gcap, split, rb, check = run(c_off, c_len)
+                call_cap, gcap, split, rb, check = run(c_off, c_len, 1)
             n_calls, cc, cf, cw = dense
-            nf, ofi, ocnt, owt = native.best_call_batch(
-                n_calls, None, None, cc, cf, cw)
+            with m.span("host_score"):
+                nf, ofi, ocnt, owt = native.best_call_batch(
+                    n_calls, None, None, cc, cf, cw)
             n_per, fam, counts, weights, first = roll
             total = int(np.asarray(n_per[:n]).sum())
             reduction = F.BestCallReduction(nf[:n], ofi[:n], ocnt[:n],
                                             owt[:n], self.db.functions)
-            outs.append(F.find_best_family_matches_batch(
-                reduction, np.asarray(n_per[:n]), fam[:total],
-                counts[:total], weights[:total], first[:total],
-                mapping, kmer_hit_threshold, allow_ambiguous,
-                target_genus_id, genus_filter, as_arrays=as_arrays))
+            with m.span("host_score"):
+                outs.append(F.find_best_family_matches_batch(
+                    reduction, np.asarray(n_per[:n]), fam[:total],
+                    counts[:total], weights[:total], first[:total],
+                    mapping, kmer_hit_threshold, allow_ambiguous,
+                    target_genus_id, genus_filter, as_arrays=as_arrays))
 
         in_flight = max(1, self.FAMILY_MATCH_GROUP)
         pending = collections.deque()

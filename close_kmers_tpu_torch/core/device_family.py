@@ -45,9 +45,10 @@ from ..ops.family_group import family_group
 from ..ops.probe_select import famwide_select
 from ..ops.row_gather import IdCheck, row_gather
 from ..utils.device import resolve_device
+from ..utils.metrics import Metrics
 from .device_score import CALL_CNT_BITS, CALL_FOLD_SHIFT, _scan_score, \
     compact_calls
-from .engine import FUSED_BUCKET_MAX, FUSED_LO_BITS, FUSED_SENTINEL, \
+from .engine import FUSED_BUCKET_MAX, FUSED_LO_BITS, FUSED_SENTINEL, K, \
     DeviceDB, encode_windows, probe_windows
 
 # D2H fold constants, copied from close_kmers_tpu/core/device_family.py:
@@ -395,6 +396,8 @@ class DeviceFamilyScorer:
         # (calls, groups), raised on overflow
         self.bm_calls_per_seq = 1
         self.bm_groups_per_seq = 2
+        # where the spans and counters go (its KmerEngine hands over its own)
+        self.metrics = Metrics()
 
     def _upload(self, offsets: np.ndarray, lengths: np.ndarray):
         """A padded batch onto the device: pinned and asynchronous on a
@@ -514,11 +517,14 @@ class DeviceFamilyScorer:
         # scoring needs: take the two-gather path there
         use_fw = self.famwide is not None and not params.order_constraint
         fold_calls, _ = self.pack_flags(offsets.shape[1])
-        calls_out, rows, check = score_family(
-            self.ddb, self.fdb.fam, *self._upload(offsets, lengths), params,
-            call_cap, fams_per_seq_cap, slim_calls, row_cap,
-            (self.famwide, self.fam_w, self.fam_d) if use_fw else None,
-            fold_calls and slim_calls)
+        m = self.metrics
+        m.count("windows_padded", offsets.shape[0] * (offsets.shape[1] - K))
+        with m.span("device_program"):
+            calls_out, rows, check = score_family(
+                self.ddb, self.fdb.fam, *self._upload(offsets, lengths),
+                params, call_cap, fams_per_seq_cap, slim_calls, row_cap,
+                (self.famwide, self.fam_w, self.fam_d) if use_fw else None,
+                fold_calls and slim_calls)
         cap_seq = (rows.shape[1] - 1) // 4 if fams_per_seq_cap >= 0 \
             else fams_per_seq_cap
         return calls_out, call_cap, rows, cap_seq, check

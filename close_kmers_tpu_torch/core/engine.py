@@ -63,6 +63,7 @@ from . import oracle as O
 from ..ops.probe_search import ROW_W, probe_search, search_rows as _search_rows
 from ..ops.probe_select import probe_select
 from ..utils.device import resolve_device
+from ..utils.metrics import NO_SPAN, Metrics
 
 K, LO_CARD = params.K, params.LO_CARD
 
@@ -712,20 +713,29 @@ class FastAnnotator:
         self.db = db
         self.device = resolve_device(device)
         self.ddb = DeviceDB.from_db(db, self.device)
+        # where the spans and counters go (a KmerEngine hands over its own)
+        self.metrics = Metrics()
 
     def pad_batch(self, seqs: list, pad_to: int | None = None):
         """Pad protein strings OR pre-encoded uint8 offset arrays into a
-        [B, L] offsets grid + lengths (invalid=20 padding)."""
-        B = len(seqs)
-        L = max(pad_to or 0, max((len(s) for s in seqs), default=0) + 1,
-                K + 2)
-        L = 1 << (L - 1).bit_length()
-        offsets = np.full((B, L), 20, dtype=np.uint8)
-        lengths = np.zeros(B, dtype=np.int32)
-        for i, s in enumerate(seqs):
-            o = s if isinstance(s, np.ndarray) else encoder.seq_to_offsets(s)
-            offsets[i, :len(o)] = o
-            lengths[i] = len(o)
+        [B, L] offsets grid + lengths (invalid=20 padding).  Traced, a
+        ``pad`` span that counts the proteins' windows (``windows_valid``);
+        callers also use the unbound method, on another engine or None."""
+        m = getattr(self, "metrics", None)
+        with (NO_SPAN if m is None else m.span("pad")):
+            B = len(seqs)
+            L = max(pad_to or 0, max((len(s) for s in seqs), default=0) + 1,
+                    K + 2)
+            L = 1 << (L - 1).bit_length()
+            offsets = np.full((B, L), 20, dtype=np.uint8)
+            lengths = np.zeros(B, dtype=np.int32)
+            for i, s in enumerate(seqs):
+                o = s if isinstance(s, np.ndarray) \
+                    else encoder.seq_to_offsets(s)
+                offsets[i, :len(o)] = o
+                lengths[i] = len(o)
+        if m is not None and m.tracing:
+            m.count("windows_valid", int((lengths - K).clip(min=0).sum()))
         return offsets, lengths
 
     def probe_compact(self, offsets: np.ndarray, lengths: np.ndarray,
@@ -744,53 +754,61 @@ class FastAnnotator:
         drops the kmer-code planes, ``want_oi=False`` the OTU indices and
         ``want_avg=False`` the avg-offsets; dropped keys come back as
         zeros."""
-        B = offsets.shape[0]
-        W = offsets.shape[1] - K
-        n_planes = 2 if rows_only \
-            else 3 + want_oi + want_avg + 2 * want_code
-        max_cap = B * W
-        cap = min(max_cap, 1 << (B * hits_per_seq_cap - 1).bit_length())
-        off_d = torch.from_numpy(np.ascontiguousarray(offsets)).to(
-            self.device)
-        len_d = torch.from_numpy(np.ascontiguousarray(
-            lengths, dtype=np.int32)).to(self.device)
-        while True:
-            out = _probe_compact(self.ddb, off_d, len_d, cap, want_code,
-                                 want_oi, want_avg, rows_only).cpu().numpy()
-            n_hits = out[:B]
-            total = int(n_hits.sum())
-            if total <= cap or cap >= max_cap:
-                break
-            cap = min(max_cap, 1 << (total * 4 - 1).bit_length())
-        pack = out[B:].reshape(n_planes, cap)
-        row_off = np.zeros(B + 1, dtype=np.int64)
-        np.cumsum(n_hits, out=row_off[1:])
-        t = slice(0, total)
-        if rows_only:
-            db = self.db
-            rows = np.minimum(pack[1, t], max(len(db) - 1, 0))
-            h = dict(pos=pack[0, t], row_off=row_off,
-                     fi=db.fi[rows], oi=db.oi[rows],
-                     avg_off=db.avg_off[rows], wt=db.wt[rows])
+        m = self.metrics
+        with m.span("device_program"):
+            B = offsets.shape[0]
+            W = offsets.shape[1] - K
+            n_planes = 2 if rows_only \
+                else 3 + want_oi + want_avg + 2 * want_code
+            max_cap = B * W
+            cap = min(max_cap, 1 << (B * hits_per_seq_cap - 1).bit_length())
+            off_d = torch.from_numpy(np.ascontiguousarray(offsets)).to(
+                self.device)
+            len_d = torch.from_numpy(np.ascontiguousarray(
+                lengths, dtype=np.int32)).to(self.device)
+            rerun = 0
+            while True:
+                m.count("device_passes")
+                m.count("device_reruns", rerun)
+                m.count("windows_padded", max_cap)
+                out = _probe_compact(self.ddb, off_d, len_d, cap,
+                                     want_code, want_oi, want_avg,
+                                     rows_only).cpu().numpy()
+                n_hits = out[:B]
+                total = int(n_hits.sum())
+                if total <= cap or cap >= max_cap:
+                    break
+                cap = min(max_cap, 1 << (total * 4 - 1).bit_length())
+                rerun = 1
+            pack = out[B:].reshape(n_planes, cap)
+            row_off = np.zeros(B + 1, dtype=np.int64)
+            np.cumsum(n_hits, out=row_off[1:])
+            t = slice(0, total)
+            if rows_only:
+                db = self.db
+                rows = np.minimum(pack[1, t], max(len(db) - 1, 0))
+                h = dict(pos=pack[0, t], row_off=row_off,
+                         fi=db.fi[rows], oi=db.oi[rows],
+                         avg_off=db.avg_off[rows], wt=db.wt[rows])
+                if want_code:
+                    h["code"] = db.keys[rows]
+                return h
+            zeros = np.zeros(total, dtype=np.int32)
+            h = dict(pos=pack[0, t], fi=pack[1, t], row_off=row_off)
+            p = 2
+            if want_oi:
+                h["oi"], p = pack[p, t], p + 1
+            else:
+                h["oi"] = zeros
+            if want_avg:
+                h["avg_off"], p = pack[p, t], p + 1
+            else:
+                h["avg_off"] = zeros
+            h["wt"] = pack[p, t].copy().view(np.float32)
             if want_code:
-                h["code"] = db.keys[rows]
+                h["code"] = (pack[p + 1, t].astype(np.int64) * LO_CARD
+                             + pack[p + 2, t].astype(np.int64))
             return h
-        zeros = np.zeros(total, dtype=np.int32)
-        h = dict(pos=pack[0, t], fi=pack[1, t], row_off=row_off)
-        p = 2
-        if want_oi:
-            h["oi"], p = pack[p, t], p + 1
-        else:
-            h["oi"] = zeros
-        if want_avg:
-            h["avg_off"], p = pack[p, t], p + 1
-        else:
-            h["avg_off"] = zeros
-        h["wt"] = pack[p, t].copy().view(np.float32)
-        if want_code:
-            h["code"] = (pack[p + 1, t].astype(np.int64) * LO_CARD
-                         + pack[p + 2, t].astype(np.int64))
-        return h
 
     def annotate(self, seqs: list[str],
                  params: EngineParams | None = None,
