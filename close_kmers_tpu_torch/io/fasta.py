@@ -1,4 +1,5 @@
-# Copied from close_kmers_tpu/io/fasta.py.
+# Ports close_kmers_tpu/io/fasta.py, with a record fast path in FastaParser;
+# held to it by tests/test_torch_host.py and tests/test_torch_fasta_fastpath.py.
 """Streaming FASTA/FASTQ parsers with reference-parity semantics.
 
 Replicates the char-at-a-time state machines of the reference
@@ -16,6 +17,14 @@ FASTA:
 * parse_complete emits the final record unconditionally, even if empty
   (fasta_parser.cc:30-36).
 
+``FastaParser.parse_chunk`` reads a whole record at C speed where the
+state machine would read it without an error: one regex, anchored at a
+'>' line start, takes the header, a first data line of letters and '*',
+further lines that are empty or start with a letter, and needs the next
+'>' line inside the chunk's complete lines.  Any other line goes through
+the state machine (``_feed_line``), so every callback, its message, line
+number and id come out as the state machine alone gives them.
+
 FASTQ (fastq_parser.h):
 * 4-line records @id / seq / + / qual; quality parsed but discarded;
 * leading '>' is diagnosed as FASTA-vs-FASTQ confusion;
@@ -25,6 +34,7 @@ FASTQ (fastq_parser.h):
 
 from __future__ import annotations
 
+import re
 from typing import Callable, Iterator
 
 OnSeq = Callable[[str, str], None]
@@ -34,6 +44,16 @@ OnError = Callable[[str, int, str], bool]
 
 def _is_alpha(c: str) -> bool:
     return c.isascii() and c.isalpha()
+
+
+# A clean record: header (id up to the first blank, the rest the
+# defline), a first data line in which '*' may stand anywhere, lines that
+# are empty or open with an ASCII letter (a '*' there is an error,
+# fasta_parser.h:109-133), ended by the next record's '>'.  Possessive
+# quantifiers: a record that fails is rejected without backtracking.
+_CLEAN_RECORD = re.compile(
+    r">([^ \t\n]*+)([^\n]*+)\n"
+    r"([A-Za-z*]*+\n(?:(?:[A-Za-z][A-Za-z*]*+)?\n)*+)(?=>)")
 
 
 class FastaParser:
@@ -52,6 +72,9 @@ class FastaParser:
         self.line_number = 1
         self._tail = ""
         self._stop = False
+        # records begun, and those of them read whole by _CLEAN_RECORD
+        self.records = 0
+        self.records_fast = 0
 
     # -- internal ------------------------------------------------------------
 
@@ -69,6 +92,7 @@ class FastaParser:
                 self._stop = True
 
     def _start_record(self, after_gt: str) -> None:
+        self.records += 1
         # id up to first blank; blank + rest becomes the defline
         for i, c in enumerate(after_gt):
             if c in " \t":
@@ -127,12 +151,33 @@ class FastaParser:
     def parse_chunk(self, data: str | bytes) -> None:
         if isinstance(data, bytes):
             data = data.decode("latin-1")
-        data = self._tail + data.replace("\r", "")
-        lines = data.split("\n")
-        self._tail = lines.pop()
-        for line in lines:
-            self._feed_line(line)
+        text = self._tail + data.replace("\r", "")
+        end = text.rfind("\n") + 1       # text[end:] is an unfinished line
+        self._tail = text[end:]
+        match = _CLEAN_RECORD.match
+        pos = 0
+        while pos < end:
+            if self._stop:
+                self.line_number += text.count("\n", pos, end)
+                return
+            if text[pos] == ">" and self.state in (self.S_START,
+                                                   self.S_DATA):
+                m = match(text, pos, end)
+                if m:
+                    if self.state == self.S_DATA:
+                        self._emit()
+                    self.cur_id, self.cur_def, lines = m.groups()
+                    self.cur_seq = [lines.replace("\n", "")]
+                    self.state = self.S_DATA
+                    self.records += 1
+                    self.records_fast += 1
+                    self.line_number += lines.count("\n") + 1
+                    pos = m.end()
+                    continue
+            nl = text.index("\n", pos)
+            self._feed_line(text[pos:nl])
             self.line_number += 1
+            pos = nl + 1
 
     def parse_complete(self) -> None:
         if self._tail:

@@ -579,7 +579,9 @@ async def process_reads(ctx, reads, params, req) -> str:
 async def _fasta_batches(ctx, body):
     """Incrementally parse the FASTA body, yielding batches of (id, seq)
     (lookup_request.cc:101-138).  Each chunk's parse and slicing is a
-    ``parse`` span; the await for the next chunk is not."""
+    ``parse`` span; the await for the next chunk is not.  The last counts
+    the body's records (``parse_records``) and those the parser read
+    whole at C speed (``parse_records_fast``)."""
     items: list[tuple[str, str]] = []
     parser = fasta.FastaParser(on_seq=lambda i, s: items.append((i, s)))
     m = ctx.metrics
@@ -594,6 +596,8 @@ async def _fasta_batches(ctx, body):
             yield batch
     with m.span("parse"):
         parser.parse_complete()
+        m.count("parse_records_fast", parser.records_fast)
+        m.count("parse_records", parser.records)
         items = [(i, s) for i, s in items if i or s]
         ready = [items[a:a + bs] for a in range(0, len(items), bs)]
     for batch in ready:

@@ -233,6 +233,9 @@ def test_metrics_renders_span_sums_and_counters(traced):
                  "device_reruns"):
         assert int(lines[name]) >= 0, name
     assert int(lines["proteins"]) == 3 * len(PATHS)
+    # each body's last record has no '>' after it: read by the state machine
+    assert int(lines["parse_records"]) == 3 * len(PATHS)
+    assert int(lines["parse_records_fast"]) == 2 * len(PATHS)
     assert float(lines["proteins_per_s"]) > 0
 
 
