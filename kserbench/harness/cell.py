@@ -3,7 +3,7 @@ result line.
 
 Set-up, in order: the DB made on the device from the seed (the frozen
 ``gen.scale_db``), the family universe for a family configuration
-(``gen.scale_mapping``), the port's server built over them and started
+(:func:`universe_of`), the port's server built over them and started
 on a thread, the request bodies made from the seed, and one warm-up
 request a client.  The window then lasts ``--seconds``; ``setup_s`` is
 everything before it.  After it the program's state is freed and the
@@ -78,6 +78,16 @@ def pin(client_pid: int) -> list | None:
     return cpus
 
 
+def universe_of(config: dict, db, dev):
+    """The family universe of a family configuration (None otherwise),
+    made on ``dev`` by ``gen.card_mapping``: equal array for array to the
+    frozen numpy ``gen.scale_mapping``, which stays the tests' reference."""
+    if not config["family_mode"]:
+        return None
+    from ..gen.card_mapping import card_mapping
+    return card_mapping(db.keys, db.fi, db.functions, dev).freeze()
+
+
 def _recv(conn, timeout: float, what: str):
     if not conn.poll(timeout):
         raise RuntimeError(f"the client sent no {what} in {timeout:.0f} s")
@@ -96,7 +106,6 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
     t_start = time.monotonic() if t_start is None else t_start
     import torch
     from ..gen.scale_db import scale_db
-    from ..gen.scale_mapping import scale_mapping
     from ..gen.traffic import make_pool
     from ..reference.answers import RefDB
 
@@ -126,8 +135,7 @@ def run_cell(workload: str, seed: int, seconds: float, trace: bool,
         cpus = pin(proc.pid)
         db = scale_db(config["n_keys"], config["aa_bias"],
                       config["n_functions"], seed, dev).freeze()
-        universe = (scale_mapping(db.keys, db.fi, db.functions).freeze()
-                    if config["family_mode"] else None)
+        universe = universe_of(config, db, dev)
         if cuda:
             torch.cuda.empty_cache()
         server = Server(db, universe, config["family_mode"], dev)
